@@ -1,5 +1,9 @@
 """Wrappers for the port's hand-written Hopper kernels.
 
+``flash_attention_bhsd`` (and its model-layout front ``flash_attention``)
+is the forward online-softmax attention of the LM prefill
+(``csrc/flash_attention.cu``).
+
 ``fused_lincomb`` is the RK stage-update / stage-adjoint primitive:
 
     forward stage inputs   x_i = u + h * sum_j a_ij k_j
@@ -14,10 +18,11 @@ only a CPU tensor takes the plain version (``kernels/ref.py``).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from repro_torch.kernels.ref import lincomb_plain
+from repro_torch.kernels.ref import attention_plain, lincomb_plain
 
 MAX_TERMS = 8
 
@@ -25,12 +30,18 @@ MAX_TERMS = 8
 launches = 0
 #: calls that ``fused_lincomb`` served with the plain version (CPU tensors)
 plain_calls = 0
+#: kernel launches made by ``flash_attention_bhsd`` (CUDA tensors)
+flash_launches = 0
+#: calls that ``flash_attention_bhsd`` served with ``attention_plain`` (CPU)
+flash_plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
+    global launches, plain_calls, flash_launches, flash_plain_calls
     launches = 0
     plain_calls = 0
+    flash_launches = 0
+    flash_plain_calls = 0
 
 
 def _args_type(ctype):
@@ -143,3 +154,114 @@ def fused_lincomb(base: torch.Tensor, terms, weights, scale=None,
         raise RuntimeError(f"fused_lincomb: CUDA launch failed with error {err}")
     launches += 1
     return out.view(base.shape)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (forward only, like the TPU kernel it replaces)
+# ---------------------------------------------------------------------------
+
+#: head dims the kernel is instantiated for (the repo's configs and tests)
+FLASH_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+_FLASH_FN = {torch.float32: "repro_flash_attention_f32",
+             torch.bfloat16: "repro_flash_attention_bf16"}
+
+
+class FlashArgs(ctypes.Structure):
+    _fields_ = [("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("b", ctypes.c_int), ("h", ctypes.c_int),
+                ("hkv", ctypes.c_int), ("sq", ctypes.c_int),
+                ("sk", ctypes.c_int), ("causal", ctypes.c_int),
+                ("window", ctypes.c_int), ("scale", ctypes.c_float)]
+
+
+def _flash_kernel(dtype):
+    fn = _bound.get(("flash", dtype))
+    if fn is None:
+        from repro_torch.kernels import _build  # builds on first launch
+        fn = getattr(_build.load("flash_attention"), _FLASH_FN[dtype])
+        fn.argtypes = [FlashArgs, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[("flash", dtype)] = fn
+    return fn
+
+
+def _check_flash(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            "flash_attention_bhsd: q (B,H,Sq,Dh), k and v (B,Hkv,Sk,Dh); got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError("flash_attention_bhsd: q and k/v differ in batch "
+                         f"or head dim: {tuple(q.shape)} vs {tuple(k.shape)}")
+    if k.shape[1] == 0 or h % k.shape[1]:
+        raise ValueError(f"flash_attention_bhsd: H={h} is not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bhsd: head dim {dh} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if q.dtype not in _FLASH_FN or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention_bhsd: q, k and v must share one "
+                        "dtype, fp32 or bf16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention_bhsd: q, k and v on different "
+                         f"devices: {q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_bhsd: q, k and v must be "
+                         "contiguous")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_bhsd has no autograd rule (the TPU kernel has "
+            "no backward either); call it under torch.no_grad()")
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Forward online-softmax attention.  q: (B,H,Sq,Dh); k, v:
+    (B,Hkv,Sk,Dh) with H % Hkv == 0, contiguous, one dtype (fp32 or bf16),
+    Dh in ``FLASH_HEAD_DIMS``.  Masks: causal (key <= query) and, for
+    ``window > 0``, key > query - window.  Returns (B,H,Sq,Dh) in q's
+    dtype.  A CUDA tensor launches ``csrc/flash_attention.cu`` or raises;
+    only a CPU tensor takes ``attention_plain``."""
+    global flash_launches, flash_plain_calls
+    _check_flash(q, k, v)
+    window = int(window)
+    if q.device.type == "cpu":
+        flash_plain_calls += 1
+        return attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bhsd: unsupported device "
+                         f"{q.device}")
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if sq == 0 or sk == 0 or b == 0:
+        raise ValueError("flash_attention_bhsd: empty sequence or batch")
+    out = torch.empty_like(q)
+    args = FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, h, hkv, sq, sk, int(bool(causal)),
+                     max(window, 0), 1.0 / math.sqrt(dh))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _flash_kernel(q.dtype)(args, dh, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bhsd: CUDA launch failed with error {err}")
+    flash_launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Model layout: q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H,Dh), as the
+    JAX package's ``ops.flash_attention``.  The kernel takes contiguous
+    (B,H,S,Dh), so this makes transposed copies of q, k and v (taking
+    strides in the kernel is later work) and returns a (B,S,H,Dh) view of
+    the kernel's output."""
+    o = flash_attention_bhsd(q.transpose(1, 2).contiguous(),
+                             k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous(),
+                             causal=causal, window=window)
+    return o.transpose(1, 2)
