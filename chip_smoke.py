@@ -40,21 +40,44 @@ Phases (any failure exits non-zero, before the last line is printed):
    greedy decode steps), and the card against the port on the CPU (fp32,
    full width, 2 layers, batch 2, prompt 64, 8 teacher-forced decode
    steps);
-8. one JSON line with each kernel's launches on its main path (which must
-   equal ``expected_lincomb_calls`` / ``expected_flash_calls``), its error
-   against the plain version and its times; then the nvidia-smi line; then
-   the result line.
+8. RWKV6 kernel phase: ``rwkv6_chunked_bhsd`` against ``rwkv6_plain``
+   (fp32: rtol = 2**-14 plus 2**-14 of max|out|, from fp32 rounding of the
+   same algorithm; bf16: one output ulp, rtol 2**-7 plus 1e-3 of
+   max|out|; the fp32 final state at the fp32 limit) and against the
+   sequential ``rwkv6_ref`` at the JAX package's limits, over that file's
+   grid in fp32 and bf16 and the slice's shape (8, 64, 2048, 64), chunk
+   64; ragged S through ``rwkv6_chunked``; chunk 16 against chunk 64.
+   ``rwkv6_plain`` with the bonus term dropped and with the state read
+   one chunk late must exceed each limit 10x.  Then timed at the slice's
+   shape beside its bound and its plain version (no PyTorch call
+   computes the recurrence: no library yardstick);
+9. RWKV6-7B serving at full width (32 layers, d 4096, 64 heads of dh 64,
+   d_ff 14336, vocab 65536, bf16, random weights drawn on the card from
+   seed 0), after TinyLlama's weights are freed: batch 8, prompt 2048
+   (above the 256-token switch, so every layer's prefill runs the
+   kernel), 64 greedy tokens, decode slices of 8; then one traced prefill
+   and one traced decode slice;
+10. RWKV6 agreement: the chunked time-mix (the kernel) against the
+   sequential scan at full width (fp32, batch 2 x 512), and the card
+   against the port on the CPU (fp32, full width, 2 layers, batch 2,
+   prompt 300, every layer's state and 8 teacher-forced decode steps);
+11. one JSON line with each kernel's launches on its main path (which
+   must equal ``expected_lincomb_calls`` / ``expected_flash_calls`` /
+   ``expected_rwkv6_calls``), its error against the plain version and its
+   times; then the nvidia-smi line; then the result line.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 3-4 for ``fused_lincomb``, phase 6 for the flash kernel) and read
-just after; comparisons made outside those windows are not counted.  TF32
-is off wherever the card is compared with the CPU.
+(phases 3-4 for ``fused_lincomb``, phase 6 for the flash kernel, phase 9
+for the RWKV6 kernel) and read just after; comparisons made outside those
+windows are not counted.  TF32 is off wherever the card is compared with
+the CPU.
 """
 import os
 
 # deterministic cuBLAS; must be set before torch initialises CUDA
 os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
+import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
@@ -89,6 +112,13 @@ LM_BF16_REL_TOL = 5e-2   # pallas vs naive last logits, bf16, 22 layers:
 #                          residual stream in another order, 22 times
 LM_FP32_REL_TOL = 1e-4   # pallas vs naive, fp32, 2 layers
 LM_CPU_REL_TOL = 1e-4    # card vs CPU port, fp32 (TF32 off), 2 layers
+# the RWKV6 kernel's limits, grid and inputs: repro_torch.kernels.rwkv6_cases
+RWKV6_SLICE = (8, 64, 2048, 64)     # (B, H, S, dh) of the RWKV6 slice
+WRONG_MARGIN = 10   # a deliberately wrong answer must exceed each limit 10x
+# the RWKV6 slice: RWKV6-7B at full width; the prompt is above the
+# 256-token switch, so every layer's prefill runs the kernel
+RWKV = dict(arch="rwkv6-7b", batch=8, prompt_len=2048, gen=64,
+            decode_slice=8)
 
 
 def fail(msg):
@@ -434,75 +464,23 @@ def flash_phase(card, dev):
 # phases 6-7: LM serving at TinyLlama-1.1B full width, and agreement
 # ---------------------------------------------------------------------------
 
-def lm_serve_phase(card, dev):
-    import dataclasses
+def traced_serve(cfg, params, spec, kernel, card, dev):
+    """Where the time goes: one traced prefill wave and one traced decode
+    slice of ``spec``'s engine, with ``kernel``'s share of device time.
+    Each engine's first step prefills its wave and later steps decode
+    slices, so a repeated profiling session takes a fresh engine for the
+    prefill and the next slice for the decode."""
     import numpy as np
-    import torch
-    from torch.utils import _pytree as pytree
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import lm
     from repro_torch.serve import LMEngine
 
-    cfg = dataclasses.replace(get_arch(LM["arch"]), attn_impl="pallas")
-    t0 = time.time()
-    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
-                            device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
-    print(f"LM: {cfg.name} full width ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
-          f"{cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.param_dtype}), {n_params} parameters drawn on the card in "
-          f"{time.time() - t0:.1f} s", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_counts()
-    t0 = time.time()
-    tokens, stats = serve(cfg, batch=LM["batch"], prompt_len=LM["prompt_len"],
-                          gen=LM["gen"], decode_slice=LM["decode_slice"],
-                          temperature=0.0, replicas=1, device=dev,
-                          params=params)
-    wall_s = time.time() - t0
-    launches, plain = ops.flash_launches, ops.flash_plain_calls
-    peak = torch.cuda.max_memory_allocated()
-    waves = 1  # one engine whose lanes hold the whole batch
-    expected = lm.expected_flash_calls(cfg, waves)
-    print(f"flash_attention launches on the serve path: {launches} (expected "
-          f"{expected}: {cfg.n_layers} attention layers x {waves} prefill "
-          f"wave); plain calls {plain}", flush=True)
-    check(plain == 0, f"{plain} plain attention calls on the card path")
-    check(launches > 0 and launches == expected,
-          f"flash launches {launches} != expected {expected}")
-    check(tuple(tokens.shape) == (LM["batch"], LM["gen"]),
-          f"tokens shape {tuple(tokens.shape)}")
-    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
-          "tokens out of the vocabulary")
-    print(f"LM serve {cfg.name}: batch {LM['batch']}, prompt "
-          f"{LM['prompt_len']}, gen {LM['gen']} (max_seq "
-          f"{LM['prompt_len'] + LM['gen']}), decode_slice "
-          f"{LM['decode_slice']}, greedy: tokens {tuple(tokens.shape)} in "
-          f"[{int(tokens.min())}, {int(tokens.max())}]; warm-up "
-          f"{stats['warmup_s'] * 1e3:.1f} ms, prefill "
-          f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
-          f"{stats['decode_s'] * 1e3:.1f} ms, steady "
-          f"{stats['tok_per_s_steady']:.1f} tok/s, end-to-end "
-          f"{stats['tok_per_s']:.1f} tok/s, serve() wall {wall_s:.2f} s; "
-          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB) {card}",
-          flush=True)
-
-    # where the time goes: one traced prefill and one traced decode slice.
-    # Each engine's first step prefills its wave and later steps decode
-    # slices, so a repeated profiling session takes a fresh engine for the
-    # prefill and the next slice for the decode.
     prompts = np.random.RandomState(3).randint(
-        0, cfg.vocab_size, (LM["batch"], LM["prompt_len"]))
+        0, cfg.vocab_size, (spec["batch"], spec["prompt_len"]))
 
     def engine():
-        eng = LMEngine(cfg, lanes=LM["batch"], prompt_len=LM["prompt_len"],
-                       max_gen=LM["gen"], decode_slice=LM["decode_slice"],
-                       params=params, device=dev)
+        eng = LMEngine(cfg, lanes=spec["batch"],
+                       prompt_len=spec["prompt_len"], max_gen=spec["gen"],
+                       decode_slice=spec["decode_slice"], params=params,
+                       device=dev)
         for p_ in prompts:
             eng.submit(p_)
         return eng
@@ -518,18 +496,19 @@ def lm_serve_phase(card, dev):
                       ("decode slice", lambda: prefilled[-1].step())):
         kernels, wall_ms = device_kernels(fn)
         busy = sum(us for _, us in kernels) / 1e3
-        fl = [us for n, us in kernels if "flash_fwd_kernel" in n]
+        kn = [us for n, us in kernels if kernel in n]
         traces[label] = dict(wall_ms=wall_ms, busy_ms=busy,
                              idle_share=1 - busy / wall_ms,
-                             kernels=len(kernels), flash_launches=len(fl),
-                             flash_ms=sum(fl) / 1e3,
-                             flash_share=sum(fl) / 1e3 / busy)
-        print(f"traced LM {label} ({LM['batch']} x {LM['prompt_len']}"
-              + (f", {LM['decode_slice']} steps" if label != "prefill"
+                             kernels=len(kernels), kernel_launches=len(kn),
+                             kernel_ms=sum(kn) / 1e3,
+                             kernel_share=sum(kn) / 1e3 / busy)
+        print(f"traced {cfg.name} {label} ({spec['batch']} x "
+              f"{spec['prompt_len']}"
+              + (f", {spec['decode_slice']} steps" if label != "prefill"
                  else "") + f"): wall {wall_ms:.1f} ms, device busy "
               f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}; "
-              f"{len(kernels)} kernels; flash_attention {len(fl)} launches, "
-              f"{sum(fl) / 1e3:.3f} ms = {sum(fl) / 1e3 / busy:.4f} of "
+              f"{len(kernels)} kernels; {kernel} {len(kn)} launches, "
+              f"{sum(kn) / 1e3:.3f} ms = {sum(kn) / 1e3 / busy:.4f} of "
               f"device time {card}", flush=True)
         by_name = {}
         for n, us in kernels:
@@ -541,8 +520,70 @@ def lm_serve_phase(card, dev):
             print(f"    {t / 1e3:9.3f} ms {t / 1e3 / busy:.4f} x{c:<5d} "
                   f"{n[:100]}")
     del fresh, prefilled
-    return cfg, params, dict(launches=launches, expected=expected,
-                             stats=stats, peak_bytes=peak, traces=traces)
+    return traces
+
+
+def serve_phase(cfg, spec, kernel, counts, expected, card, dev):
+    """Serve ``spec`` (batch, prompt, greedy tokens, decode slice) through
+    ``repro_torch.launch.serve.serve`` at ``cfg``'s full width, with
+    random weights drawn on the card from seed 0; one engine whose lanes
+    hold the whole batch, so one prefill wave.  The counters are set to 0
+    just before the serve and ``counts()`` (kernel launches, plain calls)
+    read just after: the launches must equal ``expected`` with no plain
+    call.  Then one traced prefill and one traced decode slice.  Returns
+    (params, results)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    t0 = time.time()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    print(f"LM: {cfg.name} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh "
+          f"{cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}), {n_params} parameters drawn on the card in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.time()
+    tokens, stats = serve(cfg, batch=spec["batch"],
+                          prompt_len=spec["prompt_len"], gen=spec["gen"],
+                          decode_slice=spec["decode_slice"], temperature=0.0,
+                          replicas=1, device=dev, params=params)
+    wall_s = time.time() - t0
+    launches, plain = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{kernel} launches on the {cfg.name} serve path: {launches} "
+          f"(expected {expected}: one per layer that runs it x 1 prefill "
+          f"wave); plain calls {plain}", flush=True)
+    check(plain == 0, f"{plain} plain {kernel} calls on the card path")
+    check(launches > 0 and launches == expected,
+          f"{kernel} launches {launches} != expected {expected}")
+    check(tuple(tokens.shape) == (spec["batch"], spec["gen"]),
+          f"tokens shape {tuple(tokens.shape)}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          "tokens out of the vocabulary")
+    print(f"LM serve {cfg.name}: batch {spec['batch']}, prompt "
+          f"{spec['prompt_len']}, gen {spec['gen']} (max_seq "
+          f"{spec['prompt_len'] + spec['gen']}), decode_slice "
+          f"{spec['decode_slice']}, greedy: tokens {tuple(tokens.shape)} in "
+          f"[{int(tokens.min())}, {int(tokens.max())}]; warm-up "
+          f"{stats['warmup_s'] * 1e3:.1f} ms, prefill "
+          f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{stats['decode_s'] * 1e3:.1f} ms, steady "
+          f"{stats['tok_per_s_steady']:.1f} tok/s, end-to-end "
+          f"{stats['tok_per_s']:.1f} tok/s, serve() wall {wall_s:.2f} s; "
+          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB) {card}",
+          flush=True)
+    traces = traced_serve(cfg, params, spec, kernel, card, dev)
+    return params, dict(launches=launches, expected=expected, stats=stats,
+                        peak_bytes=peak, traces=traces)
 
 
 def lm_agreement_phase(cfg, params, card, dev):
@@ -614,6 +655,223 @@ def lm_agreement_phase(cfg, params, card, dev):
           f"(tolerance {LM_CPU_REL_TOL}) {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the RWKV6 kernel, RWKV6-7B serving, and agreement
+# ---------------------------------------------------------------------------
+
+def rwkv6_state_late(r, k, v, logw, u, *, chunk):
+    """A deliberately wrong chunked RWKV6: each chunk's output reads the
+    state one chunk late (the state entering the previous chunk)."""
+    import torch
+    from repro_torch.kernels.ref import rwkv6_chunk_step
+
+    b, h, s, dh = r.shape
+    rf, kf, vf, lwf = (t.float() for t in (r, k, v, logw))
+    late = S = torch.zeros((b, h, dh, dh), device=r.device)
+    outs = []
+    for i in range(0, s, chunk):
+        sl = (slice(None), slice(None), slice(i, i + chunk))
+        parts = (rf[sl], kf[sl], vf[sl], lwf[sl], u.float())
+        outs.append(rwkv6_chunk_step(late, *parts)[0])
+        late, S = S, rwkv6_chunk_step(S, *parts)[1]
+    return torch.cat(outs, 2).to(r.dtype), S
+
+
+def rwkv6_phase(card, dev):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_plain, rwkv6_ref
+    from repro_torch.kernels.rwkv6_cases import (RWKV6_GRID, RWKV6_REF_TOL,
+                                                 RWKV6_TOL, limit_ratio,
+                                                 rwkv6_inputs)
+
+    gen = torch.Generator(dev).manual_seed(4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    ratios = {"plain": 0.0, "state": 0.0, "ref": 0.0}
+    margins = {}
+    b, h, s, dh = RWKV6_SLICE
+    cases = [(dt, c) for dt in ("float32", "bfloat16") for c in RWKV6_GRID]
+    cases.append(("float32", (b, h, s, dh, 64)))
+    n_cases = 0
+    for name, (b, h, s, dh, chunk) in cases:
+        dtype = getattr(torch, name)
+        a = rwkv6_inputs(b, h, s, dh, gen, dtype=dtype)
+        out, sfin = ops.rwkv6_chunked_bhsd(*a, chunk=chunk)
+        torch.cuda.synchronize()
+        po, ps = rwkv6_plain(*a, chunk=chunk)
+        ro, rs = rwkv6_ref(*a)
+        r_out = limit_ratio(out, po, *RWKV6_TOL[name])
+        r_st = limit_ratio(sfin, ps, *RWKV6_TOL["float32"])
+        tol = RWKV6_REF_TOL[name]
+        r_ref = max(limit_ratio(out, ro, tol["rtol"], atol=tol["atol"]),
+                    limit_ratio(sfin, rs, tol["rtol"], atol=tol["atol"]))
+        check(out.dtype == dtype and sfin.dtype == torch.float32
+              and r_out <= 1 and r_st <= 1 and r_ref <= 1,
+              f"rwkv6_chunked_bhsd beyond its limits: {name} "
+              f"{(b, h, s, dh, chunk)}: vs plain {r_out:.3f} (state "
+              f"{r_st:.3f}) of {RWKV6_TOL[name]}, vs rwkv6_ref {r_ref:.3f} "
+              f"of {tol}")
+        worst[name] = max(worst[name], max_abs(out, po))
+        for key, r in (("plain", r_out), ("state", r_st), ("ref", r_ref)):
+            ratios[key] = max(ratios[key], r)
+        n_cases += 1
+        if s > 1024:
+            continue
+        # each limit rejects a wrong answer: the bonus term dropped, and
+        # the state read one chunk late
+        for wrong, fn in (("no u-bonus", lambda: rwkv6_plain(
+                              *a[:4], torch.zeros_like(a[4]), chunk=chunk)),
+                          ("state one chunk late", lambda: rwkv6_state_late(
+                              *a, chunk=chunk))):
+            wo, _ = fn()
+            m = limit_ratio(wo, po, *RWKV6_TOL[name])
+            key = f"{wrong}, {name}"
+            margins[key] = min(margins.get(key, math.inf), m)
+    for key, m in margins.items():
+        check(m >= WRONG_MARGIN, f"a wrong RWKV6 ({key}) exceeds the limit "
+              f"only {m:.2f}x (needs {WRONG_MARGIN}x)")
+
+    # ragged S through the model-layout wrapper, and chunk 16 vs 64
+    fp32_ref = RWKV6_REF_TOL["float32"]
+    for s, chunk, dh in itertools.product((32, 96, 160), (16, 32), (16, 32)):
+        r, k, v, logw, u = rwkv6_inputs(1, 2, s, dh, gen)
+        bs = [t.transpose(1, 2) for t in (r, k, v, logw)]  # (B,S,H,dh)
+        out, sfin = ops.rwkv6_chunked(*bs, u, chunk=chunk)
+        po, ps = rwkv6_plain(*(ops.bhsd_padded(t, chunk) for t in bs), u,
+                             chunk=chunk)
+        ro, rs = rwkv6_ref(r, k, v, logw, u)
+        check(out.shape == bs[0].shape
+              and limit_ratio(out, po.transpose(1, 2)[:, :s],
+                              *RWKV6_TOL["float32"]) <= 1
+              and limit_ratio(sfin, ps, *RWKV6_TOL["float32"]) <= 1
+              and torch.allclose(out, ro.transpose(1, 2), **fp32_ref)
+              and torch.allclose(sfin, rs, **fp32_ref),
+              f"rwkv6_chunked (padded) beyond its limits at S={s}, chunk "
+              f"{chunk}, dh {dh}")
+        n_cases += 1
+    a = rwkv6_inputs(1, 2, 128, 32, gen)
+    (o16, s16), (o64, s64) = (ops.rwkv6_chunked_bhsd(*a, chunk=c)
+                              for c in (16, 64))
+    check(torch.allclose(o16, o64, **fp32_ref)
+          and torch.allclose(s16, s64, **fp32_ref),
+          "rwkv6 chunk 16 and chunk 64 disagree")
+    print(f"rwkv6 phase: rwkv6_chunked_bhsd within its limits on {n_cases} "
+          f"cases (test_kernels grid x fp32/bf16, the slice's "
+          f"{RWKV6_SLICE} chunk 64, ragged S 32-160 through rwkv6_chunked) "
+          f"and chunk 16 == chunk 64: worst ratio to the limit vs "
+          f"rwkv6_plain {ratios['plain']:.4f} (state {ratios['state']:.4f}; "
+          f"limits {RWKV6_TOL}), vs rwkv6_ref {ratios['ref']:.4f} (limits "
+          f"{RWKV6_REF_TOL}); max|diff| vs plain fp32 "
+          f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} {card}",
+          flush=True)
+    print("  wrong answers over the limits (worst case, must be >= "
+          f"{WRONG_MARGIN}x): " + ", ".join(f"{k} {m:.1f}x"
+                                           for k, m in margins.items()),
+          flush=True)
+
+    # times at the slice's shape, fp32 (the model path's type), chunk 64:
+    # device time (profiler kernel records) and call time (CUDA events)
+    b, h, s, dh = RWKV6_SLICE
+    c = 64
+    a = rwkv6_inputs(b, h, s, dh, gen)
+    chunks = b * h * (s // c)
+    # per chunk: q_in.S and the state update k_out^T.v (C x dh x dh MACs
+    # each); the scores and their product with v over the strictly lower
+    # triangle's C(C-1)/2 pairs only (dh MACs a pair each); the u-bonus
+    # diagonal (a length-dh dot and a scaled v row per position)
+    flops = chunks * (4 * c * dh * dh + 2 * c * (c - 1) * dh + 4 * c * dh)
+    nbytes = 5 * a[0].numel() * 4 + b * h * dh * dh * 4 + a[4].numel() * 4
+    ops_ms, bytes_ms = flops / FP32_FLOP_PER_S * 1e3, \
+        nbytes / HBM_BYTES_PER_S * 1e3
+    kern = lambda: ops.rwkv6_chunked_bhsd(*a, chunk=c)  # noqa: E731
+    plain = lambda: rwkv6_plain(*a, chunk=c)  # noqa: E731
+    row = dict(shape=[b, h, s, dh], chunk=c, dtype="float32", flops=flops,
+               bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops_ms_fp32=ops_ms, bytes_ms=bytes_ms,
+               ops_ms_bf16_tensor_cores=flops / BF16_FLOP_PER_S * 1e3,
+               call_ms=time_ms(kern, 20, 3),
+               plain_call_ms=time_ms(plain, 5, 1))
+    row["ms"] = device_ms(kern, iters=10)
+    row["plain_ms"] = device_ms(plain, iters=3)
+    print(f"  rwkv6 float32 {RWKV6_SLICE} chunk {c}: kernel {row['ms']:.4f} "
+          f"ms (call {row['call_ms']:.4f})  plain {row['plain_ms']:.4f} ms "
+          f"(call {row['plain_call_ms']:.4f})  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {flops:.4e} FLOP at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; "
+          f"{nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; at the bf16 tensor "
+          f"cores' rate {row['ops_ms_bf16_tensor_cores']:.4f} ms)  library: "
+          f"none {card}", flush=True)
+    del a
+    torch.cuda.empty_cache()
+    return dict(worst=worst, ratios=ratios, margins=margins, row=row,
+                cases=n_cases)
+
+
+def rwkv_agreement_phase(card, dev):
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.rwkv6_cases import RWKV6_REF_TOL
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm
+
+    cfg = get_arch(RWKV["arch"])
+    rs = np.random.RandomState(7)
+    # (a) layer level, full width: chunked (the kernel) against the scan
+    # (plain torch), the JAX package's own contract, at the limit of the
+    # CPU test that holds it (tests/test_torch_ssm.py)
+    tol = RWKV6_REF_TOL["float32"]
+    p = ssm.init_rwkv6(torch.Generator(dev).manual_seed(2), cfg.d_model,
+                       cfg.n_heads, torch.float32, device=dev)
+    x = torch.from_numpy(rs.randn(2, 512, cfg.d_model).astype(np.float32)
+                         ).to(dev)
+    with torch.no_grad():
+        yc, sc = ssm.rwkv6_mix_chunked(p, x, cfg.n_heads)
+        ys, ss = ssm.rwkv6_mix_scan(p, x, cfg.n_heads)
+    ok = torch.allclose(yc, ys, **tol) and torch.allclose(sc, ss, **tol)
+    check(ok, f"rwkv6_mix_chunked vs rwkv6_mix_scan at full width beyond "
+          f"{tol}: y {max_abs(yc, ys)}, state {max_abs(sc, ss)}")
+    print(f"agreement: rwkv6_mix_chunked (kernel) vs rwkv6_mix_scan, fp32, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads, batch 2 x 512: max|diff| "
+          f"y {max_abs(yc, ys):.3e} (max|y| {float(ys.abs().max()):.3e}), "
+          f"state {max_abs(sc, ss):.3e} (tolerance {tol}) {card}",
+          flush=True)
+    del p, x, yc, sc, ys, ss
+
+    # (b) model level: the card against the port on the CPU, fp32, TF32
+    # off, full width, 2 layers, prompt 300 (ragged: the padding runs)
+    f32 = dataclasses.replace(cfg, n_layers=2, layer_kinds=cfg.kinds[:2],
+                              param_dtype="float32", compute_dtype="float32")
+    p32 = lm.init_params(f32, torch.Generator(dev).manual_seed(1),
+                         device=dev)
+    p_cpu = pytree.tree_map(lambda t: t.cpu(), p32)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 300)))
+    teacher = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 8)))
+    with torch.no_grad():
+        st_g, lg_g = lm.prefill(f32, p32, {"tokens": toks.to(dev)}, 308)
+        st_c, lg_c = lm.prefill(f32, p_cpu, {"tokens": toks}, 308)
+        errs = {"prefill logits": rel_err(lg_g.cpu(), lg_c)}
+        for (path, a), b in zip(pytree.tree_flatten_with_path(st_g)[0],
+                                pytree.tree_leaves(st_c)):
+            errs[pytree.keystr(path)] = rel_err(a.cpu(), b)
+        for i in range(8):
+            tok = teacher[:, i:i + 1]
+            lg_g, st_g = lm.decode_step(f32, p32, st_g, tok.to(dev), 300 + i)
+            lg_c, st_c = lm.decode_step(f32, p_cpu, st_c, tok, 300 + i)
+            errs[f"decode {i}"] = rel_err(lg_g.cpu(), lg_c)
+    worst = max(errs.values())
+    check(worst <= LM_CPU_REL_TOL,
+          f"RWKV6 card vs CPU beyond {LM_CPU_REL_TOL}: {errs}")
+    print(f"agreement: {cfg.name} card vs the port on the CPU, fp32 (TF32 "
+          f"off), full width, 2 layers, batch 2 x 300: prefill logits, every "
+          f"layer's S / tm_prev / cm_prev and 8 teacher-forced decode steps, "
+          f"worst max|diff|/max|ref| {worst:.3e} (tolerance "
+          f"{LM_CPU_REL_TOL}) {card}", flush=True)
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -626,10 +884,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import dataclasses
+    import gc
     from torch.utils import _pytree as pytree
+    from repro_torch.configs.registry import get_arch
     from repro_torch.core.adjoint import expected_lincomb_calls
     from repro_torch.examples.image_classification import synthetic_cifar
     from repro_torch.kernels import _build, ops
+    from repro_torch.models.lm import (expected_flash_calls,
+                                       expected_rwkv6_calls)
     from repro_torch.models.ode_nets import classifier_init, cnf_vf_init
     from repro_torch.optim.adamw import AdamW
 
@@ -648,9 +911,12 @@ def main():
     for stem in libs:
         log = (_build.build_dir() / f"{stem}.log")
         if log.exists():
+            fn = ""
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {stem}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1][-60:]  # the template arguments
+                elif "registers" in line or "spill" in line:
+                    print(f"  ptxas {stem} ...{fn}: {line.strip()}")
 
     # -- phase 2 -------------------------------------------------------------
     worst, timing_rows = kernel_phase(card)
@@ -805,12 +1071,39 @@ def main():
     flash_worst, flash_rows = flash_phase(card, dev)
 
     # -- phase 6: LM serving at full width, counted ---------------------------
-    lm_cfg, lm_params, lm_res = lm_serve_phase(card, dev)
+    lm_cfg = dataclasses.replace(get_arch(LM["arch"]), attn_impl="pallas")
+    lm_params, lm_res = serve_phase(
+        lm_cfg, LM, "flash_fwd_kernel",
+        lambda: (ops.flash_launches, ops.flash_plain_calls),
+        expected_flash_calls(lm_cfg, 1), card, dev)
 
     # -- phase 7: agreement ---------------------------------------------------
     lm_agreement_phase(lm_cfg, lm_params, card, dev)
 
-    # -- phase 8: the kernels line, the card, the result ---------------------
+    # -- phase 8: the RWKV6 kernel -------------------------------------------
+    rw = rwkv6_phase(card, dev)
+
+    # -- phase 9: RWKV6-7B serving at full width, counted ---------------------
+    # TinyLlama's weights and states go first: RWKV6-7B holds 15 GB
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rw_cfg = get_arch(RWKV["arch"])
+    rw_params, rw_res = serve_phase(
+        rw_cfg, RWKV, "rwkv6_chunked_kernel",
+        lambda: (ops.rwkv6_launches, ops.rwkv6_plain_calls),
+        expected_rwkv6_calls(rw_cfg, RWKV["prompt_len"], 1), card, dev)
+    check(rw_res["expected"] == rw_cfg.n_layers == 32,
+          f"expected_rwkv6_calls gives {rw_res['expected']}, not one a layer")
+    del rw_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10: RWKV6 agreement --------------------------------------------
+    rwkv_agreement_phase(card, dev)
+
+    # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
         "name": "fused_lincomb",
@@ -865,6 +1158,40 @@ def main():
                   "tok_per_s": lm_res["stats"]["tok_per_s"],
                   "peak_bytes": lm_res["peak_bytes"],
                   "traces": lm_res["traces"]},
+        "card": smi,
+    }, {
+        "name": "rwkv6_chunked",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:75",
+        "launches": rw_res["launches"],
+        "expected_launches": rw_res["expected"],
+        "max_abs_err": max(rw["worst"].values()),
+        "max_abs_err_fp32": rw["worst"]["float32"],
+        "max_abs_err_bf16": rw["worst"]["bfloat16"],
+        "limit_ratios": rw["ratios"],
+        "wrong_answer_margins": rw["margins"],
+        "ms": rw["row"]["ms"],
+        "kernel_ms": rw["row"]["ms"],
+        "call_ms": rw["row"]["call_ms"],
+        "plain_ms": rw["row"]["plain_ms"],
+        "plain_call_ms": rw["row"]["plain_call_ms"],
+        "bound_ms": rw["row"]["bound_ms"],
+        "bound_by": rw["row"]["bound_by"],
+        "bound_parts_ms": {k: rw["row"][k] for k in
+                           ("ops_ms_fp32", "bytes_ms",
+                            "ops_ms_bf16_tensor_cores")},
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the RWKV6 "
+                   "recurrence",
+        "timed_case": {k: rw["row"][k] for k in
+                       ("shape", "chunk", "dtype", "flops", "bytes")},
+        "serve": {"prefill_ms": rw_res["stats"]["prefill_s"] * 1e3,
+                  "warmup_ms": rw_res["stats"]["warmup_s"] * 1e3,
+                  "tok_per_s_steady": rw_res["stats"]["tok_per_s_steady"],
+                  "tok_per_s": rw_res["stats"]["tok_per_s"],
+                  "peak_bytes": rw_res["peak_bytes"],
+                  "traces": rw_res["traces"]},
         "card": smi,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,10 @@
 is the forward online-softmax attention of the LM prefill
 (``csrc/flash_attention.cu``).
 
+``rwkv6_chunked_bhsd`` (and its model-layout front ``rwkv6_chunked``) is
+the chunked RWKV6 recurrence of the RWKV6 prefill
+(``csrc/rwkv6_scan.cu``).
+
 ``fused_lincomb`` is the RK stage-update / stage-adjoint primitive:
 
     forward stage inputs   x_i = u + h * sum_j a_ij k_j
@@ -21,8 +25,9 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.ref import attention_plain, lincomb_plain
+from repro_torch.kernels.ref import attention_plain, lincomb_plain, rwkv6_plain
 
 MAX_TERMS = 8
 
@@ -34,14 +39,21 @@ plain_calls = 0
 flash_launches = 0
 #: calls that ``flash_attention_bhsd`` served with ``attention_plain`` (CPU)
 flash_plain_calls = 0
+#: kernel launches made by ``rwkv6_chunked_bhsd`` (CUDA tensors)
+rwkv6_launches = 0
+#: calls that ``rwkv6_chunked_bhsd`` served with ``rwkv6_plain`` (CPU)
+rwkv6_plain_calls = 0
 
 
 def reset_counts() -> None:
     global launches, plain_calls, flash_launches, flash_plain_calls
+    global rwkv6_launches, rwkv6_plain_calls
     launches = 0
     plain_calls = 0
     flash_launches = 0
     flash_plain_calls = 0
+    rwkv6_launches = 0
+    rwkv6_plain_calls = 0
 
 
 def _args_type(ctype):
@@ -265,3 +277,122 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                              v.transpose(1, 2).contiguous(),
                              causal=causal, window=window)
     return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# chunked RWKV6 recurrence (forward only, like the TPU kernel it replaces)
+# ---------------------------------------------------------------------------
+
+#: head dims and chunk lengths the kernel is instantiated for
+RWKV6_HEAD_DIMS = (16, 32, 64, 128)
+RWKV6_CHUNKS = (16, 32, 64)
+_RWKV6_FN = {torch.float32: "repro_rwkv6_chunked_f32",
+             torch.bfloat16: "repro_rwkv6_chunked_bf16"}
+
+
+class Rwkv6Args(ctypes.Structure):
+    _fields_ = [("r", ctypes.c_void_p), ("k", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("logw", ctypes.c_void_p),
+                ("u", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("state", ctypes.c_void_p), ("b", ctypes.c_int),
+                ("h", ctypes.c_int), ("s", ctypes.c_int)]
+
+
+def _rwkv6_kernel(dtype):
+    fn = _bound.get(("rwkv6", dtype))
+    if fn is None:
+        from repro_torch.kernels import _build  # builds on first launch
+        fn = getattr(_build.load("rwkv6_scan"), _RWKV6_FN[dtype])
+        fn.argtypes = [Rwkv6Args, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[("rwkv6", dtype)] = fn
+    return fn
+
+
+def _check_rwkv6(r, k, v, logw, u, chunk):
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
+        raise ValueError(
+            "rwkv6_chunked_bhsd: r, k, v and logw must all be (B,H,S,dh); got "
+            f"{tuple(r.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+            f"{tuple(logw.shape)}")
+    b, h, s, dh = r.shape
+    if u.shape != (h, dh):
+        raise ValueError(f"rwkv6_chunked_bhsd: u must be (H,dh) = {(h, dh)}, "
+                         f"got {tuple(u.shape)}")
+    if r.dtype not in _RWKV6_FN or any(t.dtype != r.dtype
+                                       for t in (k, v, logw, u)):
+        raise TypeError("rwkv6_chunked_bhsd: r, k, v, logw and u must share "
+                        "one dtype, fp32 or bf16; got "
+                        f"{[str(t.dtype) for t in (r, k, v, logw, u)]}")
+    if any(t.device != r.device for t in (k, v, logw, u)):
+        raise ValueError("rwkv6_chunked_bhsd: operands on different devices: "
+                         f"{[str(t.device) for t in (r, k, v, logw, u)]}")
+    if not all(t.is_contiguous() for t in (r, k, v, logw, u)):
+        raise ValueError("rwkv6_chunked_bhsd: operands must be contiguous")
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"rwkv6_chunked_bhsd: S={s} is not a multiple of "
+                         f"the chunk {chunk} (rwkv6_chunked pads)")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, logw, u)):
+        raise RuntimeError(
+            "rwkv6_chunked_bhsd has no autograd rule (the TPU kernel has no "
+            "backward either); call it under torch.no_grad()")
+
+
+def rwkv6_chunked_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, *,
+                       chunk: int = 64):
+    """Chunked RWKV6 recurrence from a zero state.  r/k/v/logw: (B,H,S,dh)
+    with S a multiple of ``chunk``, u: (H,dh), all contiguous and of one
+    dtype (fp32 or bf16).  Returns (out (B,H,S,dh) in r's dtype, final
+    state (B,H,dh,dh) fp32).  A CUDA tensor launches ``csrc/rwkv6_scan.cu``
+    (dh in ``RWKV6_HEAD_DIMS``, chunk in ``RWKV6_CHUNKS``) or raises; only a
+    CPU tensor takes ``rwkv6_plain``."""
+    global rwkv6_launches, rwkv6_plain_calls
+    chunk = int(chunk)
+    _check_rwkv6(r, k, v, logw, u, chunk)
+    if r.device.type == "cpu":
+        rwkv6_plain_calls += 1
+        return rwkv6_plain(r, k, v, logw, u, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_chunked_bhsd: unsupported device {r.device}")
+    b, h, s, dh = r.shape
+    if dh not in RWKV6_HEAD_DIMS or chunk not in RWKV6_CHUNKS:
+        raise ValueError(f"rwkv6_chunked_bhsd: head dim {dh} / chunk {chunk} "
+                         f"not in {RWKV6_HEAD_DIMS} / {RWKV6_CHUNKS}")
+    if b * h == 0 or s == 0:
+        raise ValueError("rwkv6_chunked_bhsd: empty batch, heads or sequence")
+    out = torch.empty_like(r)
+    state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    args = Rwkv6Args(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                     state.data_ptr(), b, h, s)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _rwkv6_kernel(r.dtype)(args, dh, chunk, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"rwkv6_chunked_bhsd: CUDA launch failed with error {err}")
+    rwkv6_launches += 1
+    return out, state
+
+
+def bhsd_padded(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B,S,H,dh) -> contiguous (B,H,S',dh), zero-padded along S to S' a
+    multiple of ``chunk`` (a zero logw step decays nothing and a zero k or
+    v adds nothing, so the padding leaves the state as it was)."""
+    tt = t.transpose(1, 2)
+    pad = (-tt.shape[2]) % chunk
+    return (F.pad(tt, (0, 0, 0, pad)) if pad else tt).contiguous()
+
+
+def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 64):
+    """Model layout: r/k/v/logw (B,S,H,dh), u (H,dh) -> (out (B,S,H,dh),
+    final state (B,H,dk,dv)), as the JAX package's ``ops.rwkv6_chunked``:
+    S is zero-padded to a multiple of ``chunk`` and the padding stripped
+    from the output, which is a (B,S,H,dh) view of the kernel's."""
+    s = r.shape[1]
+    out, state = rwkv6_chunked_bhsd(*(bhsd_padded(t, chunk)
+                                      for t in (r, k, v, logw)),
+                                    u.contiguous(), chunk=chunk)
+    return out.transpose(1, 2)[:, :s], state

@@ -2,8 +2,11 @@
 
 The wrappers in ``kernels/ops.py`` use these for tensors on the CPU; on
 the card they are the oracle the kernels are held against: bitwise for
-``fused_lincomb``, within a stated tolerance for the flash kernel, whose
-sums run in another order."""
+``fused_lincomb``, within a stated tolerance for the flash and RWKV6
+kernels, whose sums run in another order.  ``rwkv6_ref`` is the
+sequential RWKV6 oracle (the JAX package's ``rwkv6_ref``);
+``rwkv6_plain`` is the chunked algorithm of the TPU kernel and the RWKV6
+kernel's plain version."""
 from __future__ import annotations
 
 import math
@@ -63,3 +66,80 @@ def attention_plain(q, k, v, *, causal=True, window=0):
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def rwkv6_ref(r, k, v, logw, u):
+    """Sequential RWKV6 recurrence, the port of the JAX package's
+    ``ref.rwkv6_ref``.  r/k/v/logw: (B,H,S,dh); u: (H,dh).  Per step, from
+    a zero fp32 state S (dk, dv):
+
+        o_t = r_t S + (r_t . (u * k_t)) v_t,  S <- exp(logw_t) S + k_t (x) v_t
+
+    Returns (out in r's dtype, final state fp32 (B,H,dh,dh))."""
+    b, h, s, dh = r.shape
+    rf, kf, vf, lwf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()[None]
+    S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(s):
+        rt, kt, vt = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        ot = torch.einsum("bhk,bhkv->bhv", rt, S) \
+            + (rt * (uf * kt)).sum(-1, keepdim=True) * vt
+        S = torch.exp(lwf[:, :, t])[..., None] * S \
+            + torch.einsum("bhk,bhv->bhkv", kt, vt)
+        outs.append(ot)
+    return torch.stack(outs, 2).to(r.dtype), S
+
+
+def rwkv6_chunk_step(S, r, k, v, lw, u):
+    """One chunk of the chunked RWKV6 form, the arithmetic of the TPU
+    kernel's ``_rwkv6_kernel`` body.  S: (B,H,dk,dv) fp32 state entering
+    the chunk; r/k/v/lw: (B,H,C,dh) fp32; u: (H,dh) fp32.  With the
+    inclusive per-channel cumsum ``cum`` of lw, ``total = cum[C-1]`` and the
+    midpoint renormaliser ``mid = cum[C // 2]``:
+
+        o = (r e^{cum-lw}) S + tril_{-1}[(r e^{cum-lw-mid})(k e^{mid-cum})^T] v
+            + (sum_d r u k) v
+        S' = e^{total}^T * S + (k e^{total-cum})^T v
+
+    Returns (o (B,H,C,dh) fp32, S')."""
+    c = r.shape[2]
+    cum = lw.cumsum(2)
+    cum_prev = cum - lw
+    total = cum[:, :, -1:]
+    mid = cum[:, :, c // 2][:, :, None]
+    q_in = r * torch.exp(cum_prev)
+    q_mid = r * torch.exp(cum_prev - mid)
+    k_mid = k * torch.exp(mid - cum)
+    k_out = k * torch.exp(total - cum)
+    o_inter = q_in @ S
+    lower = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    att = torch.where(lower, q_mid @ k_mid.transpose(-1, -2), 0.0)
+    o_intra = att @ v
+    o_diag = (r * u[None, :, None, :] * k).sum(-1, keepdim=True) * v
+    S = torch.exp(total).transpose(-1, -2) * S + k_out.transpose(-1, -2) @ v
+    return o_inter + o_intra + o_diag, S
+
+
+def rwkv6_plain(r, k, v, logw, u, *, chunk: int = 64, state=None):
+    """Plain version of ``ops.rwkv6_chunked_bhsd``: ``rwkv6_chunk_step``
+    over the chunks in order.  r/k/v/logw: (B,H,S,dh) with S a multiple of
+    ``chunk``; u: (H,dh).  Every operand is upcast to fp32, as the TPU
+    kernel does; the state starts from zero, or from ``state`` (B,H,dh,dh)
+    where a caller carries one (the kernel does not).  Returns (out in
+    r's dtype, final state fp32)."""
+    b, h, s, dh = r.shape
+    if s % chunk:
+        raise ValueError(f"rwkv6_plain: S={s} is not a multiple of the "
+                         f"chunk {chunk}")
+    rf, kf, vf, lwf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()
+    S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    outs = []
+    for i in range(0, s, chunk):
+        sl = slice(i, i + chunk)
+        o, S = rwkv6_chunk_step(S, rf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
+                                lwf[:, :, sl], uf)
+        outs.append(o)
+    return torch.cat(outs, 2).to(r.dtype), S

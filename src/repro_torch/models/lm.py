@@ -1,5 +1,6 @@
 """Causal LM: init / forward / loss / prefill / decode, the port of
-``repro/models/lm.py`` for decoder-only stacks of attention layers.
+``repro/models/lm.py`` for decoder-only stacks of attention layers (kind
+``'a'``) and RWKV6 layers (kind ``'w'``).
 
 Batch dict conventions (the JAX package's):
   train:    {"tokens": (B, S) int, "targets": (B, S) int}
@@ -102,8 +103,9 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device="cuda"):
-    """Zeroed KV caches for every layer, on the card unless
-    ``device="cpu"`` is asked for."""
+    """Zeroed decode state for every layer (KV caches; RWKV6 recurrence
+    states and token-shift inputs), on the card unless ``device="cpu"``
+    is asked for."""
     _check_cfg(cfg)
     return tf.init_stack_state(cfg, batch, max_seq,
                                device=resolve_device(device))
@@ -111,8 +113,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             max_seq: int):
-    """Run the prompt through the model, filling every layer's KV cache.
-    Returns (state, last_logits (B, V))."""
+    """Run the prompt through the model, filling every layer's decode
+    state.  Returns (state, last_logits (B, V))."""
     _check_cfg(cfg)
     x = _embed_tokens(cfg, params, batch["tokens"])
     x, state = tf.prefill_stack(cfg, params["blocks"], x, max_seq)
@@ -122,8 +124,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 def decode_step(cfg: ModelConfig, params: Params, state, token: torch.Tensor,
                 pos: int):
-    """One decode step.  token: (B, 1) int; pos: Python int.  The state's
-    caches are updated in place (JAX donates and returns them).  Returns
+    """One decode step.  token: (B, 1) int; pos: Python int.  The decode
+    state is updated in place (JAX donates and returns it).  Returns
     (logits (B, V), state)."""
     x = _embed_tokens(cfg, params, token)
     x, state = tf.decode_stack(cfg, params["blocks"], state, x, int(pos))
@@ -139,3 +141,15 @@ def expected_flash_calls(cfg: ModelConfig, prefill_waves: int) -> int:
     if cfg.attn_impl != "pallas":
         return 0
     return sum(k == "a" for k in cfg.kinds) * int(prefill_waves)
+
+
+def expected_rwkv6_calls(cfg: ModelConfig, prompt_len: int,
+                         prefill_waves: int) -> int:
+    """Launches of the RWKV6 kernel that ``prefill_waves`` prefills of
+    ``prompt_len`` tokens make: one per RWKV6 layer per wave when the
+    prompt is longer than 256 tokens (the chunked form), else 0 (the
+    sequential scan; decode is plain torch too).  The counterpart of
+    ``expected_flash_calls``."""
+    if prompt_len <= 256:
+        return 0
+    return sum(k == "w" for k in cfg.kinds) * int(prefill_waves)

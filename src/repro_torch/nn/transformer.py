@@ -1,6 +1,7 @@
 """Transformer depth stack, the port of ``repro/nn/transformer.py`` for
 attention layers (kind ``'a'``: GQA attention with a per-layer sliding
-window + GLU MLP, pre-norms, residuals).
+window + GLU MLP) and RWKV6 layers (kind ``'w'``: RWKV6 time-mix + RWKV
+channel-mix), with pre-norms and residuals.
 
 The parameter tree keeps the JAX package's layout: ``{"scan": {...},
 "rem": {...}}``, where every ``"scan"`` leaf carries a leading axis over
@@ -9,11 +10,16 @@ over the unit init gives) and ``"rem"`` holds the unrolled remainder
 layers.  Decode state has the same shape.  Where JAX scans over units this
 port loops in Python, taking a view of each unit's slice.
 
-Not ported yet, each raising ``NotImplementedError``: RWKV6 time-mix
-(kind ``'w'``) and RG-LRU (kind ``'r'``) layers and MoE
-(ROADMAP Queue 1 item 13; cross-attention comes with the enc-dec family,
-which ``models/lm.py`` refuses), and ``checkpointed_scan``, the depth remat of
-training (Queue 1 item 8).
+A ``'w'`` layer takes the chunked time-mix (the RWKV6 kernel) when the
+sequence is longer than 256 tokens and the sequential scan otherwise, the
+JAX package's rule; its decode state is the fp32 recurrence state ``S``
+and the last normed inputs of the two token shifts, ``tm_prev`` and
+``cm_prev``.
+
+Not ported yet, each raising ``NotImplementedError``: RG-LRU layers (kind
+``'r'``) and MoE (ROADMAP Queue 1 item 13; cross-attention comes with the
+enc-dec family, which ``models/lm.py`` refuses), and ``checkpointed_scan``,
+the depth remat of training (Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention as attn_mod
+from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.layers import (glu_mlp, glu_mlp_init,
                                    layernorm, layernorm_init, rmsnorm,
                                    rmsnorm_init)
@@ -38,13 +45,26 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind in ("w", "r"):
-        raise NotImplementedError(f"layer kind {kind!r} (RWKV6 / RG-LRU) "
-                                  f"is {_TODO}")
-    if kind != "a":
+    if kind == "r":
+        raise NotImplementedError(f"layer kind 'r' (RG-LRU) is {_TODO}")
+    if kind not in ("a", "w"):
         raise ValueError(kind)
     if cfg.n_experts:
         raise NotImplementedError(f"MoE layers are {_TODO}")
+
+
+def _rwkv_layer(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """A ``'w'`` layer's full-sequence pass.  The time-mix is chunked (the
+    kernel) above 256 tokens and the sequential scan at or below, the JAX
+    package's rule.  Returns (x, S, h, h2): the recurrence state after the
+    sequence and the normed inputs of the time-mix and channel-mix."""
+    h = _norm(cfg, p["norm1"], x)
+    mix = ssm_mod.rwkv6_mix_chunked if x.shape[1] > 256 \
+        else ssm_mod.rwkv6_mix_scan
+    y, S = mix(p["tmix"], h, cfg.n_heads)
+    x = x + y
+    h2 = _norm(cfg, p["norm2"], x)
+    return x + ssm_mod.rwkv_channel_mix(p["cmix"], h2), S, h, h2
 
 
 def _norm_init(cfg: ModelConfig, device, lead=()):
@@ -72,28 +92,37 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device="cpu",
                lead=()) -> Params:
     _check_kind(cfg, kind)
     dt = dtype_of(cfg.param_dtype)
-    return {
-        "norm1": _norm_init(cfg, device, lead),
-        "norm2": _norm_init(cfg, device, lead),
-        "attn": attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
+    p = {"norm1": _norm_init(cfg, device, lead),
+         "norm2": _norm_init(cfg, device, lead)}
+    if kind == "w":
+        p["tmix"] = ssm_mod.init_rwkv6(gen, cfg.d_model, cfg.n_heads, dt,
+                                       device=device, lead=lead)
+        p["cmix"] = ssm_mod.init_rwkv_channel_mix(gen, cfg.d_model, cfg.d_ff,
+                                                  dt, device=device,
+                                                  lead=lead)
+        return p
+    p["attn"] = attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
                                         cfg.n_kv_heads, cfg.dh, dt,
-                                        device=device, lead=lead),
-        "mlp": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device=device,
-                            lead=lead),
-    }
+                                        device=device, lead=lead)
+    p["mlp"] = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device=device,
+                            lead=lead)
+    return p
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                 window: int):
     """Returns (x, aux_loss); aux is 0 without MoE."""
     _check_kind(cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "w":
+        return _rwkv_layer(cfg, p, x)[0], aux
     h = _norm(cfg, p["norm1"], x)
     x = x + attn_mod.attention_block(
         p["attn"], h, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
         window=window, impl=cfg.attn_impl)
     h = _norm(cfg, p["norm2"], x)
     x = x + glu_mlp(p["mlp"], h, cfg.act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +190,14 @@ def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor):
 def init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      *, device="cpu", lead=()):
     _check_kind(cfg, kind)
-    shape = (*lead, batch, max_seq, cfg.n_kv_heads, cfg.dh)
     cdt = dtype_of(cfg.compute_dtype)
+    if kind == "w":
+        prev = (*lead, batch, 1, cfg.d_model)
+        return {"S": torch.zeros((*lead, batch, cfg.n_heads, cfg.dh, cfg.dh),
+                                 dtype=torch.float32, device=device),
+                "tm_prev": torch.zeros(prev, dtype=cdt, device=device),
+                "cm_prev": torch.zeros(prev, dtype=cdt, device=device)}
+    shape = (*lead, batch, max_seq, cfg.n_kv_heads, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
 
@@ -182,10 +217,19 @@ def init_stack_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 def prefill_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                   window: int, state):
     """Full-sequence layer pass that also fills the layer's decode state
-    in place: the first S slots of ``state``'s KV cache (views into the
-    stack's state, made by ``init_layer_state``) take the prompt's keys
-    and values.  Returns (x, state)."""
+    in place (``state`` holds views into the stack's state, made by
+    ``init_layer_state``): for ``'a'`` the first S slots of the KV cache
+    take the prompt's keys and values; for ``'w'`` ``S`` takes the
+    recurrence state after the prompt and ``tm_prev`` / ``cm_prev`` the
+    last normed inputs of the time-mix and channel-mix.  Returns (x,
+    state)."""
     _check_kind(cfg, kind)
+    if kind == "w":
+        x, S, h, h2 = _rwkv_layer(cfg, p, x)
+        state["S"].copy_(S)
+        state["tm_prev"].copy_(h[:, -1:])
+        state["cm_prev"].copy_(h2[:, -1:])
+        return x, state
     s = x.shape[1]
     h = _norm(cfg, p["norm1"], x)
     y, k, v = attn_mod.self_attention_kv(p["attn"], h,
@@ -226,10 +270,22 @@ def prefill_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 def decode_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  state, pos: int, window: int):
-    """One-token decode through a single layer.  x: (B, 1, D).  The KV
-    cache in ``state`` is updated in place.  Returns (x, state)."""
+    """One-token decode through a single layer.  x: (B, 1, D).  The
+    layer's state (KV cache, or RWKV6 ``S``, ``tm_prev`` and ``cm_prev``)
+    is updated in place.  Returns (x, state)."""
     _check_kind(cfg, kind)
     h = _norm(cfg, p["norm1"], x)
+    if kind == "w":
+        y, S = ssm_mod.rwkv6_mix_decode(p["tmix"], state["tm_prev"], h,
+                                        state["S"], cfg.n_heads)
+        x = x + y
+        h2 = _norm(cfg, p["norm2"], x)
+        hh2 = torch.cat([state["cm_prev"].to(h2.dtype), h2], dim=1)
+        x = x + ssm_mod.rwkv_channel_mix(p["cmix"], hh2)[:, 1:]
+        state["S"].copy_(S)
+        state["tm_prev"].copy_(h)
+        state["cm_prev"].copy_(h2)
+        return x, state
     y, _, _ = attn_mod.decode_attention_block(
         p["attn"], h, state["k"], state["v"], pos, n_heads=cfg.n_heads,
         rope_theta=cfg.rope_theta, window=window)

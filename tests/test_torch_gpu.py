@@ -4,7 +4,11 @@ same card; ``flash_attention_bhsd`` against ``attention_plain`` (fp32
 rtol = atol = 2e-5, as ``tests/test_kernels.py``; bf16 rtol 1e-2, atol
 1e-3: both round an fp32 result to bf16 once, so they may differ by one
 bf16 ulp and no more), its launch
-count on an LM prefill, and the kernel's prefill against the naive one.
+count on an LM prefill, and the kernel's prefill against the naive one;
+``rwkv6_chunked_bhsd`` against ``rwkv6_plain`` (the limits of
+``repro_torch.kernels.rwkv6_cases``) and against the
+sequential ``rwkv6_ref`` at the JAX package's limits, its refusals, and
+its launch count on an RWKV6 prefill.
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -23,8 +27,13 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import adjoint as tadj
 from repro_torch.core.depth_ode import ODEBlock
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_plain, lincomb_plain
+from repro_torch.kernels.ref import (attention_plain, lincomb_plain,
+                                     rwkv6_plain, rwkv6_ref)
+from repro_torch.kernels.rwkv6_cases import (RWKV6_GRID, RWKV6_REF_TOL,
+                                             RWKV6_TOL, limit_ratio,
+                                             rwkv6_inputs)
 from repro_torch.models import lm, ode_nets
+from repro_torch.nn import ssm
 
 # deterministic cuBLAS needs this before CUDA starts; harmless elsewhere
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -254,3 +263,99 @@ def test_prefill_bf16_pallas_vs_naive(cuda):
     rel = float((last.float() - last_n.float()).abs().max()
                 / last_n.float().abs().max())
     assert rel < 5e-2, rel
+
+
+# the JAX package's grid, then every supported dh x chunk
+RWKV6_CASES = RWKV6_GRID + [(2, 3, 192, dh, c) for dh in ops.RWKV6_HEAD_DIMS
+                            for c in ops.RWKV6_CHUNKS]
+REF_FP32 = RWKV6_REF_TOL["float32"]
+
+
+def _rwkv6_inputs(b, h, s, dh, dtype, device, seed=0):
+    return [t.to(device) for t in rwkv6_inputs(
+        b, h, s, dh, torch.Generator().manual_seed(seed), dtype=dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dh,chunk", RWKV6_CASES)
+def test_rwkv6_kernel_vs_plain_and_sequential(cuda, dtype, b, h, s, dh,
+                                              chunk):
+    a = _rwkv6_inputs(b, h, s, dh, dtype, cuda)
+    before = ops.rwkv6_launches
+    out, sfin = ops.rwkv6_chunked_bhsd(*a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_launches == before + 1
+    assert out.dtype == dtype and sfin.dtype == torch.float32
+    name = str(dtype).removeprefix("torch.")
+    po, ps = rwkv6_plain(*a, chunk=chunk)
+    assert limit_ratio(out, po, *RWKV6_TOL[name]) <= 1
+    assert limit_ratio(sfin, ps, *RWKV6_TOL["float32"]) <= 1
+    ro, rs = rwkv6_ref(*a)
+    torch.testing.assert_close(out.float(), ro.float(), **RWKV6_REF_TOL[name])
+    torch.testing.assert_close(sfin, rs, **RWKV6_REF_TOL[name])
+
+
+def test_rwkv6_kernel_chunk_independence_and_padding(cuda):
+    a = _rwkv6_inputs(1, 2, 128, 32, torch.float32, cuda, seed=3)
+    o1, s1 = ops.rwkv6_chunked_bhsd(*a, chunk=16)
+    o2, s2 = ops.rwkv6_chunked_bhsd(*a, chunk=64)
+    torch.testing.assert_close(o1, o2, **REF_FP32)
+    torch.testing.assert_close(s1, s2, **REF_FP32)
+    for s, chunk in ((32, 16), (96, 32), (160, 32)):
+        r, k, v, logw, u = _rwkv6_inputs(1, 2, s, 16, torch.float32, cuda,
+                                         seed=s)
+        bs = [t.transpose(1, 2) for t in (r, k, v, logw)]   # (B,S,H,dh)
+        out, sfin = ops.rwkv6_chunked(*bs, u, chunk=chunk)
+        ro, rs = rwkv6_ref(r, k, v, logw, u)
+        torch.testing.assert_close(out, ro.transpose(1, 2),
+                                   **REF_FP32)
+        torch.testing.assert_close(sfin, rs, **REF_FP32)
+
+
+def test_rwkv6_refuses_on_the_card(cuda):
+    a = _rwkv6_inputs(1, 2, 64, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_chunked_bhsd(*_rwkv6_inputs(1, 2, 64, 48, torch.float32,
+                                              cuda), chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.rwkv6_chunked_bhsd(*a, chunk=8)
+    with pytest.raises(TypeError):
+        ops.rwkv6_chunked_bhsd(*(t.half() for t in a), chunk=16)
+    with pytest.raises(ValueError, match="devices"):
+        ops.rwkv6_chunked_bhsd(*a[:4], a[4].cpu(), chunk=16)
+    # a carried state: the kernel starts from zero, as the TPU kernel does
+    params = ssm.init_rwkv6(torch.Generator().manual_seed(0), 64, 4,
+                            device=cuda)
+    x = torch.randn(1, 300, 64, device=cuda)
+    state = torch.zeros(1, 4, 16, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        ssm.rwkv6_mix_chunked(params, x, 4, state)
+
+
+def _rwkv6_lm_case(device):
+    cfg = reduced(get_arch("rwkv6-7b"), n_layers=3, d_model=256, n_heads=4,
+                  head_dim=64, d_ff=512, vocab_size=512,
+                  param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=device)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 300)))
+    return cfg, params, toks
+
+
+def test_rwkv6_prefill_launch_count_and_cpu_agreement(cuda):
+    cfg, params, toks = _rwkv6_lm_case(cuda)
+    ops.reset_counts()
+    with torch.no_grad():
+        state, last = lm.prefill(cfg, params, {"tokens": toks.to(cuda)}, 304)
+        torch.cuda.synchronize()
+        assert ops.rwkv6_launches == lm.expected_rwkv6_calls(cfg, 300, 1) \
+            == 3
+        assert ops.rwkv6_plain_calls == 0
+        p_cpu = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+        state_c, last_c = lm.prefill(cfg, p_cpu, {"tokens": toks}, 304)
+    rel = float((last.cpu() - last_c).abs().max() / last_c.abs().max())
+    assert rel < 1e-4, rel
+    torch.testing.assert_close(state["scan"]["0_w"]["S"].cpu(),
+                               state_c["scan"]["0_w"]["S"], rtol=1e-4,
+                               atol=1e-4)

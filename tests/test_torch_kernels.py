@@ -100,6 +100,7 @@ def test_fused_lincomb_validates_its_operands():
 def test_build_needs_nvcc_and_hashes_the_sources(monkeypatch, tmp_path):
     assert (PORT / "csrc" / "lincomb.cu").exists()
     assert (PORT / "csrc" / "flash_attention.cu").exists()
+    assert (PORT / "csrc" / "rwkv6_scan.cu").exists()
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent == ROOT / "build" / "repro_torch_kernels"
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -121,7 +122,8 @@ def test_port_sources_import_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     names = {f.relative_to(PORT).as_posix() for f in files[:-1]}
-    assert {"nn/attention.py", "nn/transformer.py", "models/lm.py",
+    assert {"nn/attention.py", "nn/ssm.py", "nn/transformer.py",
+            "models/lm.py", "kernels/rwkv6_cases.py",
             "serve/engine.py", "serve/queue.py", "launch/serve.py",
             "configs/tinyllama_1_1b.py", "obs/sink.py"} <= names
     for f in files:

@@ -8,9 +8,15 @@ and the tokens come from a numpy seed.  Under ``attn_impl="pallas"`` the
 JAX side runs its Pallas kernel in interpret mode and the port's wrapper
 serves ``attention_plain`` for the CPU tensors.
 
-Tolerances: LM_TOL (rtol = atol = 2e-5) for logits, losses and KV caches
-in fp32 (the two frameworks sum the same products in another order; the
-measured differences are below 4e-6); tokens are held equal.
+RWKV6 (``rwkv6-7b``, reduced to 2 layers) runs its sequential scan at
+S <= 256 and its chunked form above (S 300 here): the JAX side its jnp
+``chunk_step`` scan, the port its kernel's plain version.
+
+Tolerances: LM_TOL (rtol = atol = 2e-5) for logits, losses and decode
+states in fp32 (the two frameworks sum the same products in another
+order; the measured differences are below 4e-6, and below 1e-5 of
+1 + |x| where the chunked RWKV6 form runs, whose cumsum and exponentials
+the two frameworks round differently); tokens are held equal.
 """
 import dataclasses
 
@@ -46,6 +52,11 @@ from repro_torch.serve import AdmissionError, BucketSpec, LMEngine, RequestQueue
 
 LM_TOL = dict(rtol=2e-5, atol=2e-5)
 ARCHS_SLICE = ["tinyllama-1.1b", "smollm-135m", "gemma3-4b"]
+# (arch, prompt length): the attention archs at S 24; RWKV6 on both sides
+# of its 256-token switch
+LM_CASES = [pytest.param(a, 24, id=a) for a in ARCHS_SLICE] + [
+    pytest.param("rwkv6-7b", 32, id="rwkv6-7b-scan"),
+    pytest.param("rwkv6-7b", 300, id="rwkv6-7b-chunked")]
 
 
 @pytest.fixture(autouse=True)
@@ -56,6 +67,8 @@ def _f32():
 
 def _cfgs(arch, **kw):
     kw.setdefault("attn_impl", "pallas")
+    if arch == "rwkv6-7b":
+        kw.setdefault("n_layers", 2)
     return (j_reduced(j_get_arch(arch), **kw), reduced(get_arch(arch), **kw))
 
 
@@ -244,11 +257,11 @@ def test_attention_block_and_decode_block_match_jax():
 # the model: forward, loss, prefill, decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS_SLICE)
-def test_lm_forward_prefill_decode_match_jax(arch):
+@pytest.mark.parametrize("arch,s", LM_CASES)
+def test_lm_forward_prefill_decode_match_jax(arch, s):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
-    b, s, max_seq = 2, 24, 32
+    b, max_seq = 2, s + 8
     toks = _tokens(b, s)
     batch_j = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(toks)}
     batch_t = {"tokens": torch.from_numpy(toks),
@@ -268,10 +281,14 @@ def test_lm_forward_prefill_decode_match_jax(arch):
                                  max_seq)
         tst, tlast = tlm.prefill(tcfg, tp, {"tokens": batch_t["tokens"]},
                                  max_seq)
-        # one plain flash call per attention layer (CPU tensors)
+        # one plain kernel call per attention layer, and per RWKV6 layer
+        # above 256 tokens (CPU tensors)
         assert (ops.flash_plain_calls, ops.flash_launches) == \
             (tlm.expected_flash_calls(tcfg, 1), 0)
-        assert ops.flash_plain_calls == tcfg.n_layers
+        assert (ops.rwkv6_plain_calls, ops.rwkv6_launches) == \
+            (tlm.expected_rwkv6_calls(tcfg, s, 1), 0)
+        assert ops.flash_plain_calls + ops.rwkv6_plain_calls == \
+            (0 if arch == "rwkv6-7b" and s <= 256 else tcfg.n_layers)
         _close(jlast, tlast)
         jst_np = jax.tree_util.tree_map(np.asarray, jst)
         tst_np = convert.params_to_numpy(tst)
@@ -295,6 +312,30 @@ def test_lm_forward_prefill_decode_match_jax(arch):
             lambda a, c: np.testing.assert_allclose(c, a, **LM_TOL),
             jax.tree_util.tree_map(np.asarray, jst),
             convert.params_to_numpy(tst))
+
+
+def test_rwkv6_prefill_then_decode_equals_forward():
+    """The JAX package's teacher-forced contract (tests/test_archs.py:67):
+    prefill on S-1 tokens + 1 decode step gives the forward's logits at
+    the last position, rtol = atol = 2e-4; here at S 300, so the prefill
+    takes the chunked form (the kernel's route) and the decode carries its
+    state."""
+    _, tcfg = _cfgs("rwkv6-7b")
+    _, tp = _params(j_reduced(j_get_arch("rwkv6-7b"), n_layers=2), seed=1)
+    toks = torch.from_numpy(_tokens(2, 300, seed=6))
+    with torch.no_grad():
+        full, _ = tlm.forward(tcfg, tp, {"tokens": toks})
+        ops.reset_counts()
+        state, _ = tlm.prefill(tcfg, tp, {"tokens": toks[:, :-1]}, 304)
+        assert ops.rwkv6_plain_calls == tlm.expected_rwkv6_calls(
+            tcfg, 299, 1) == 2
+        dec, _ = tlm.decode_step(tcfg, tp, state, toks[:, -1:], 299)
+    np.testing.assert_allclose(dec.numpy(), full[:, -1].numpy(), rtol=2e-4,
+                               atol=2e-4)
+    assert tlm.expected_rwkv6_calls(tcfg, 256, 3) == 0
+    assert tlm.expected_rwkv6_calls(tcfg, 257, 3) == 6
+    assert tlm.expected_rwkv6_calls(get_arch("rwkv6-7b"), 2048, 1) == 32
+    assert tlm.expected_rwkv6_calls(get_arch("tinyllama-1.1b"), 2048, 1) == 0
 
 
 def test_prefill_impls_agree_and_steps_wrap_the_model():
@@ -323,7 +364,7 @@ def test_prefill_impls_agree_and_steps_wrap_the_model():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("rwkv6-7b", "'w'"), ("recurrentgemma-9b", "'r'"),
+    ("recurrentgemma-9b", "'r'"),
     ("mixtral-8x7b", "MoE"), ("whisper-medium", "encoder-decoder"),
     ("llava-next-mistral-7b", "vision_stub")])
 def test_unported_families_raise_naming_the_roadmap(arch, what):
@@ -331,6 +372,19 @@ def test_unported_families_raise_naming_the_roadmap(arch, what):
         tlm.init_params(reduced(get_arch(arch)),
                         torch.Generator().manual_seed(0), device="cpu")
     assert what in str(e.value)
+
+
+def test_rwkv6_initialises_on_the_cpu_in_the_jax_layout():
+    jcfg, tcfg = _cfgs("rwkv6-7b")
+    tp = tlm.init_params(tcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    shapes = lambda tree: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: (tuple(a.shape), str(a.dtype)), tree)
+    assert shapes(convert.params_to_numpy(tp)) == \
+        shapes(jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    assert shapes(convert.params_to_numpy(
+        tlm.init_decode_state(tcfg, 2, 8, device="cpu"))) == \
+        shapes(jlm.init_decode_state(jcfg, 2, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +434,7 @@ def _auto_mesh():
                          axis_types=(AxisType.Auto,) * 2)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "rwkv6-7b"])
 def test_lm_engine_tokens_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
