@@ -23,12 +23,18 @@ Phases (any failure exits non-zero, before the last line is printed):
    channels, CIFAR-10 shape 32x32x3, 10 classes), batch 128, rk4, N_t = 4,
    pnode, fused, AdamW, 5 steps on seeded synthetic data;
 5. flash kernel phase: ``flash_attention_bhsd`` against ``attention_plain``
-   on the card (fp32 rtol = atol = 2e-5, the tolerance of
-   tests/test_kernels.py; bf16 rtol 1e-2, atol 1e-3, one bf16 ulp of the
-   output, tighter than that file's 5e-2) over that file's grid, the
-   cross-lengths case, every supported head dim and the LM slice's shape
-   (8, 32, 4, 1920, 64); then timed there beside its bound, its plain
-   version and
+   on the card, with the limits of ``repro_torch.kernels.flash_cases``:
+   bf16 (the tensor-core kernel, p rounded to bf16 once) within the
+   elementwise limit derived from that arithmetic, at diffuse and sharp
+   scores, worst ratio printed; fp32 (the CUDA-core kernel, the TPU
+   kernel's arithmetic) within rtol = atol = 2e-5, the tolerance of
+   tests/test_kernels.py; over that file's grid, cross lengths, every
+   head dim at ragged S and Sq != Sk, and the LM slice's shape (8, 32, 4,
+   1920, 64).  Four deliberately wrong answers must exceed the bf16
+   limit 10x.  ``flash_attention`` on strided (B,S,H,Dh) views must equal
+   the contiguous call bitwise and launch nothing but the kernel.  Then
+   timed at the slice's shape beside its bound, its plain version, the
+   earlier CUDA-core kernel's 5.1872 ms and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 6. LM serving at TinyLlama-1.1B's full width (22 layers, d 2048, 32/4
    heads, bf16, ``attn_impl="pallas"``, random weights drawn on the card
@@ -99,11 +105,11 @@ CLS_LOSS_RTOL = 1e-5
 CLS_GRAD_TOL = 1e-3  # max|card - cpu| / max|cpu| per leaf
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 FP32_FLOP_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
-# the flash kernel against attention_plain.  bf16: both round an fp32
-# result to bf16 once, so they may differ by one ulp, at most 2**-7 of the
-# output; an error the size of an output (about 0.05 at S = 1920) fails
-FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
-             "bfloat16": dict(rtol=1e-2, atol=1e-3)}
+# the flash kernels' limits, grid, inputs and wrong answers:
+# repro_torch.kernels.flash_cases
+# the bf16 CUDA-core kernel that the tensor-core one replaced, at the
+# slice's shape (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_FLASH_MS = 5.1872
 # the LM slice: TinyLlama-1.1B at full width, the kernel's attention path
 LM = dict(arch="tinyllama-1.1b", batch=8, prompt_len=1920, gen=128,
           decode_slice=8)
@@ -363,73 +369,111 @@ def classifier_grads(params, images, labels, fused):
 # phase 5: the flash kernel against its plain version
 # ---------------------------------------------------------------------------
 
-FLASH_GRID = [(1, 4, 4, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 256, 32),
-              (1, 4, 4, 200, 64), (1, 2, 2, 64, 128)]
-FLASH_SLICE = (8, 32, 4, 1920, 64)  # (B, H, Hkv, S, Dh) of the LM slice
-
-
-def flash_operands(b, h, hkv, sq, sk, dh, dtype, gen, device):
-    import torch
-    return (torch.randn(b, h, sq, dh, generator=gen).to(device, dtype),
-            torch.randn(b, hkv, sk, dh, generator=gen).to(device, dtype),
-            torch.randn(b, hkv, sk, dh, generator=gen).to(device, dtype))
-
-
 def flash_phase(card, dev):
+    import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ops import FLASH_HEAD_DIMS, flash_attention_bhsd
+    from repro_torch.kernels import flash_cases as fc
+    from repro_torch.kernels.ops import flash_attention, flash_attention_bhsd
     from repro_torch.kernels.ref import attention_plain
 
-    gen = torch.Generator().manual_seed(2)
-    cases = [(b, h, hkv, s, s, dh, causal, window)
-             for b, h, hkv, s, dh in FLASH_GRID
-             for causal, window in ((True, 0), (True, 48), (False, 0))]
-    cases.append((1, 4, 4, 64, 192, 64, False, 0))  # cross lengths
-    for dh in FLASH_HEAD_DIMS:
-        cases += [(2, 4, 2, 150, 150, dh, True, 0),
-                  (1, 2, 1, 70, 70, dh, True, 16)]
-    b, h, hkv, s, dh = FLASH_SLICE
-    cases.append((b, h, hkv, s, s, dh, True, 0))
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
-        tol = FLASH_TOL[name]
-        for (b, h, hkv, sq, sk, dh, causal, window) in cases:
-            q, k, v = flash_operands(b, h, hkv, sq, sk, dh, dtype, gen, dev)
-            out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    rng = np.random.RandomState(2)
+    b, h, hkv, s, dh = fc.FLASH_SLICE
+    cases = [(shape, c, w) for shape in fc.FLASH_SHAPES
+             for c, w in fc.FLASH_MASKS] + fc.FLASH_RAGGED
+    cases.append(((b, h, hkv, s, s, dh), True, 0))
+    worst = {"float32": 0.0, "bfloat16": 0.0}   # max|kernel - plain|
+    ratios = {"float32": 0.0, "bfloat16": 0.0}  # worst ratio to the limit
+    margins = dict.fromkeys(fc.WRONG_ANSWERS, 0.0)
+    n_cases = 0
+    for shape, causal, window in cases:
+        mask = dict(causal=causal, window=window)
+        # bf16, the tensor-core kernel: the derived elementwise limit at
+        # diffuse and sharp scores; each wrong answer must exceed it
+        for sharp in fc.FLASH_SHARPNESS:
+            q, k, v = fc.flash_inputs(*shape, rng, device=dev,
+                                      dtype=torch.bfloat16, sharpness=sharp)
+            out = flash_attention_bhsd(q, k, v, **mask)
             torch.cuda.synchronize()
-            ref = attention_plain(q, k, v, causal=causal, window=window)
-            err = max_abs(out, ref)
-            check(out.dtype == dtype and out.shape == ref.shape
-                  and torch.allclose(out.float(), ref.float(), **tol),
-                  f"flash_attention_bhsd vs attention_plain beyond {tol}: "
-                  f"{name} {(b, h, hkv, sq, sk, dh)} causal={causal} "
-                  f"window={window} max|diff|={err}")
-            worst[name] = max(worst[name], err)
-    print(f"flash phase: flash_attention_bhsd within tolerance of "
-          f"attention_plain on {2 * len(cases)} cases (test_kernels grid x "
-          f"causal/window 48/non-causal, cross lengths 64x192, head dims "
-          f"{FLASH_HEAD_DIMS}, the slice's {FLASH_SLICE}; fp32 and bf16); "
-          f"max|diff| fp32 {worst['float32']:.3e} (tol {FLASH_TOL['float32']}"
-          f"), bf16 {worst['bfloat16']:.3e} (tol {FLASH_TOL['bfloat16']}) "
-          f"{card}", flush=True)
+            plain = attention_plain(q, k, v, **mask)
+            r = fc.bf16_ratio(out, q, k, v, plain=plain, **mask)
+            check(out.dtype == torch.bfloat16 and out.shape == plain.shape
+                  and r <= 1,
+                  f"bf16 flash_attention_bhsd beyond the derived limit: "
+                  f"{shape} {mask} sharpness {sharp}: ratio {r:.3f}, "
+                  f"max|diff| {max_abs(out, plain)}")
+            worst["bfloat16"] = max(worst["bfloat16"], max_abs(out, plain))
+            ratios["bfloat16"] = max(ratios["bfloat16"], r)
+            n_cases += 1
+            if shape[3] <= 1024:
+                for name, wrong in fc.WRONG_ANSWERS.items():
+                    margins[name] = max(margins[name], fc.bf16_ratio(
+                        wrong(q, k, v, **mask), q, k, v, plain=plain, **mask))
+        # fp32, the CUDA-core kernel: the TPU kernel's arithmetic
+        q, k, v = fc.flash_inputs(*shape, rng, device=dev)
+        out = flash_attention_bhsd(q, k, v, **mask)
+        torch.cuda.synchronize()
+        plain = attention_plain(q, k, v, **mask)
+        r = fc.fp32_ratio(out, plain)
+        check(out.dtype == torch.float32 and out.shape == plain.shape
+              and r <= 1, f"fp32 flash_attention_bhsd beyond {fc.FLASH_TOL}: "
+              f"{shape} {mask}: max|diff| {max_abs(out, plain)}")
+        worst["float32"] = max(worst["float32"], max_abs(out, plain))
+        ratios["float32"] = max(ratios["float32"], r)
+        n_cases += 1
+    for name, m in margins.items():
+        check(m >= fc.WRONG_MARGIN, f"a wrong flash answer ({name}) exceeds "
+              f"the bf16 limit only {m:.2f}x (needs {fc.WRONG_MARGIN}x)")
+    print(f"flash phase: flash_attention_bhsd within its limits on {n_cases} "
+          f"cases (test_kernels grid, cross lengths 64x192, every head dim "
+          f"at S = 150 x {len(fc.FLASH_MASKS)} masks; ragged and Sq != Sk "
+          f"at every head dim; the slice's {fc.FLASH_SLICE}; bf16 at "
+          f"sharpness {fc.FLASH_SHARPNESS}, and fp32): worst ratio to the "
+          f"limit bf16 {ratios['bfloat16']:.4f} (the derived limit), fp32 "
+          f"{ratios['float32']:.4f} ({fc.FLASH_TOL}); max|diff| bf16 "
+          f"{worst['bfloat16']:.3e}, fp32 {worst['float32']:.3e} {card}",
+          flush=True)
+    print("  wrong answers over the bf16 limit (worst case, must be >= "
+          f"{fc.WRONG_MARGIN}x): " + ", ".join(f"{k} {m:.1f}x"
+                                              for k, m in margins.items()),
+          flush=True)
+
+    # the model layout: flash_attention on strided (B,S,H,Dh) views equals
+    # the contiguous call bitwise, and launches the kernel and nothing else
+    for dtype in (torch.bfloat16, torch.float32):
+        qs, ks, vs = fc.flash_inputs(b, h, hkv, s, s, dh, rng, device=dev,
+                                     dtype=dtype, layout="bshd")
+        o = flash_attention(qs, ks, vs)
+        oc = flash_attention_bhsd(*(t.transpose(1, 2).contiguous()
+                                    for t in (qs, ks, vs)))
+        check(o.shape == qs.shape and o.is_contiguous()
+              and torch.equal(o, oc.transpose(1, 2)),
+              f"{dtype} flash_attention on (B,S,H,Dh) views differs from the "
+              "contiguous call")
+        launched = [n for n, _ in
+                    device_kernels(lambda: flash_attention(qs, ks, vs))[0]]
+        check(len(launched) == 1 and "flash_fwd_kernel" in launched[0],
+              f"flash_attention launched {launched}: copies on the card")
+        print(f"  model layout {dtype}: flash_attention on (B,S,H,Dh) views "
+              f"of {fc.FLASH_SLICE} == the contiguous call bitwise; one "
+              f"launch, no copies ({launched[0][:60]})", flush=True)
+    del qs, ks, vs, o, oc
 
     # times at the slice's shape, causal: the kernel's device time (profiler
     # kernel records) and call time (CUDA events over a loop of Python
     # calls), the plain version's, and SDPA's as the library yardstick
-    b, h, hkv, s, dh = FLASH_SLICE
     pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
     flops = 4 * dh * pairs                    # q.k and p.v, 2 FLOP per MAC
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        q, k, v = flash_operands(b, h, hkv, s, s, dh, dtype, gen, dev)
+        q, k, v = fc.flash_inputs(b, h, hkv, s, s, dh, rng, device=dev,
+                                  dtype=dtype)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         kern = lambda: flash_attention_bhsd(q, k, v)  # noqa: E731
         plain = lambda: attention_plain(q, k, v)  # noqa: E731
-        row = dict(shape=list(FLASH_SLICE), dtype=name, causal=True,
+        row = dict(shape=list(fc.FLASH_SLICE), dtype=name, causal=True,
                    flops=flops, bytes=nbytes,
                    bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
                    call_ms=time_ms(kern, 20, 3),
@@ -438,26 +482,38 @@ def flash_phase(card, dev):
         row["plain_ms"] = device_ms(plain, iters=3)
         row["bound_by"] = ("operations" if flops / peak
                            >= nbytes / HBM_BYTES_PER_S else "bytes")
+        row["x_bound"] = row["ms"] / row["bound_ms"]
         if dtype == torch.bfloat16:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=True, enable_gqa=True)
             row["library_ms"] = device_ms(lib, 10)
             row["library_call_ms"] = time_ms(lib, 20, 3)
+            row["x_library"] = row["ms"] / row["library_ms"]
             check(torch.allclose(lib().float(), kern().float(), rtol=5e-2,
                                  atol=5e-2),
                   "SDPA and the flash kernel disagree at the slice's shape")
         rows[name] = row
-        print(f"  flash {name} {FLASH_SLICE} causal: kernel {row['ms']:.4f} "
-              f"ms (call {row['call_ms']:.4f})  plain {row['plain_ms']:.4f} "
-              f"ms (call {row['plain_call_ms']:.4f})  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} "
-              f"FLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes} B)"
-              + (f"  SDPA {row['library_ms']:.4f} ms (call "
-                 f"{row['library_call_ms']:.4f})" if "library_ms" in row
-                 else "") + f" {card}", flush=True)
         del q, k, v
+    bf, f32 = rows["bfloat16"], rows["float32"]
+    print(f"  flash bf16 (wgmma) {fc.FLASH_SLICE} causal: kernel "
+          f"{bf['ms']:.4f} ms (call {bf['call_ms']:.4f}; the earlier "
+          f"CUDA-core kernel {EARLIER_FLASH_MS}), bound "
+          f"{bf['bound_ms']:.4f} ms "
+          f"({bf['bound_by']}: {flops:.4e} FLOP at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, {bf['bytes']} B), SDPA "
+          f"{bf['library_ms']:.4f} ms (call {bf['library_call_ms']:.4f}): "
+          f"{bf['x_library']:.3f}x SDPA, {bf['x_bound']:.3f}x the bound, "
+          f"{flops / bf['ms'] / 1e9:.1f} TFLOP/s; plain {bf['plain_ms']:.4f} "
+          f"ms (call {bf['plain_call_ms']:.4f}) {card}", flush=True)
+    print(f"  flash fp32 (CUDA cores) {fc.FLASH_SLICE} causal: kernel "
+          f"{f32['ms']:.4f} ms (call {f32['call_ms']:.4f}), bound "
+          f"{f32['bound_ms']:.4f} ms ({f32['bound_by']} at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s): {f32['x_bound']:.3f}x; "
+          f"plain {f32['plain_ms']:.4f} ms (call {f32['plain_call_ms']:.4f})"
+          f" {card}", flush=True)
     torch.cuda.empty_cache()
-    return worst, rows
+    return dict(worst=worst, ratios=ratios, margins=margins, rows=rows,
+                cases=n_cases)
 
 
 # ---------------------------------------------------------------------------
@@ -680,10 +736,9 @@ def rwkv6_state_late(r, k, v, logw, u, *, chunk):
 def rwkv6_phase(card, dev):
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import rwkv6_plain, rwkv6_ref
+    from repro_torch.kernels.ref import limit_ratio, rwkv6_plain, rwkv6_ref
     from repro_torch.kernels.rwkv6_cases import (RWKV6_GRID, RWKV6_REF_TOL,
-                                                 RWKV6_TOL, limit_ratio,
-                                                 rwkv6_inputs)
+                                                 RWKV6_TOL, rwkv6_inputs)
 
     gen = torch.Generator(dev).manual_seed(4)
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -1068,7 +1123,7 @@ def main():
 
     # -- phase 5: the flash kernel ------------------------------------------
     torch.use_deterministic_algorithms(False)  # the LM phases hold tolerances
-    flash_worst, flash_rows = flash_phase(card, dev)
+    fl = flash_phase(card, dev)
 
     # -- phase 6: LM serving at full width, counted ---------------------------
     lm_cfg = dataclasses.replace(get_arch(LM["arch"]), attn_impl="pallas")
@@ -1131,26 +1186,31 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
+        "design": "wgmma",
         "launches": lm_res["launches"],
         "expected_launches": lm_res["expected"],
-        "max_abs_err": max(flash_worst.values()),
-        "max_abs_err_fp32": flash_worst["float32"],
-        "max_abs_err_bf16": flash_worst["bfloat16"],
-        "ms": flash_rows["bfloat16"]["ms"],
-        "kernel_ms": flash_rows["bfloat16"]["ms"],
-        "plain_ms": flash_rows["bfloat16"]["plain_ms"],
-        "call_ms": flash_rows["bfloat16"]["call_ms"],
-        "plain_call_ms": flash_rows["bfloat16"]["plain_call_ms"],
-        "bound_ms": flash_rows["bfloat16"]["bound_ms"],
-        "bound_by": flash_rows["bfloat16"]["bound_by"],
-        "library_ms": flash_rows["bfloat16"]["library_ms"],
-        "library_call_ms": flash_rows["bfloat16"]["library_call_ms"],
+        "max_abs_err": max(fl["worst"].values()),
+        "max_abs_err_fp32": fl["worst"]["float32"],
+        "max_abs_err_bf16": fl["worst"]["bfloat16"],
+        "limit_ratios": fl["ratios"],
+        "wrong_answer_margins": fl["margins"],
+        "ms": fl["rows"]["bfloat16"]["ms"],
+        "kernel_ms": fl["rows"]["bfloat16"]["ms"],
+        "plain_ms": fl["rows"]["bfloat16"]["plain_ms"],
+        "call_ms": fl["rows"]["bfloat16"]["call_ms"],
+        "plain_call_ms": fl["rows"]["bfloat16"]["plain_call_ms"],
+        "bound_ms": fl["rows"]["bfloat16"]["bound_ms"],
+        "bound_by": fl["rows"]["bfloat16"]["bound_by"],
+        "x_bound": fl["rows"]["bfloat16"]["x_bound"],
+        "library_ms": fl["rows"]["bfloat16"]["library_ms"],
+        "library_call_ms": fl["rows"]["bfloat16"]["library_call_ms"],
+        "x_library": fl["rows"]["bfloat16"]["x_library"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True), bf16",
-        "fp32": {k: flash_rows["float32"][k] for k in
+        "fp32": {k: fl["rows"]["float32"][k] for k in
                  ("ms", "call_ms", "plain_ms", "plain_call_ms",
-                  "bound_ms", "bound_by")},
-        "timed_case": {k: flash_rows["bfloat16"][k] for k in
+                  "bound_ms", "bound_by", "x_bound")},
+        "timed_case": {k: fl["rows"]["bfloat16"][k] for k in
                        ("shape", "dtype", "causal", "flops", "bytes")},
         "serve": {"prefill_ms": lm_res["stats"]["prefill_s"] * 1e3,
                   "warmup_ms": lm_res["stats"]["warmup_s"] * 1e3,

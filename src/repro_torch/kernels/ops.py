@@ -172,19 +172,32 @@ def fused_lincomb(base: torch.Tensor, terms, weights, scale=None,
 # flash attention (forward only, like the TPU kernel it replaces)
 # ---------------------------------------------------------------------------
 
-#: head dims the kernel is instantiated for (the repo's configs and tests)
+#: head dims the kernels are instantiated for (the repo's configs and tests)
 FLASH_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+#: fp32: the CUDA-core kernel; bf16: the tensor-core (wgmma + TMA) kernel
 _FLASH_FN = {torch.float32: "repro_flash_attention_f32",
              torch.bfloat16: "repro_flash_attention_bf16"}
+#: the bf16 kernel's tensor maps need 16-byte bases and strides (TMA)
+TMA_ALIGN = 16
+#: the fp32 kernel offsets a row inside its 64-row tiles with an int
+F32_MAX_ROW_STRIDE = 2 ** 31 // 64
+# error codes of csrc/flash_attention.cu beside cudaError_t's
+_FLASH_ERRORS = {100000: "the driver has no cuTensorMapEncodeTiled",
+                 200000: "cuTensorMapEncodeTiled refused the operand"}
 
 
 class FlashArgs(ctypes.Structure):
     _fields_ = [("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
                 ("v", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("q_stride", ctypes.c_longlong * 3),
+                ("k_stride", ctypes.c_longlong * 3),
+                ("v_stride", ctypes.c_longlong * 3),
+                ("o_stride", ctypes.c_longlong * 3),
                 ("b", ctypes.c_int), ("h", ctypes.c_int),
                 ("hkv", ctypes.c_int), ("sq", ctypes.c_int),
-                ("sk", ctypes.c_int), ("causal", ctypes.c_int),
-                ("window", ctypes.c_int), ("scale", ctypes.c_float)]
+                ("sk", ctypes.c_int), ("dh", ctypes.c_int),
+                ("causal", ctypes.c_int), ("window", ctypes.c_int),
+                ("scale", ctypes.c_float)]
 
 
 def _flash_kernel(dtype):
@@ -192,7 +205,7 @@ def _flash_kernel(dtype):
     if fn is None:
         from repro_torch.kernels import _build  # builds on first launch
         fn = getattr(_build.load("flash_attention"), _FLASH_FN[dtype])
-        fn.argtypes = [FlashArgs, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [FlashArgs, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bound[("flash", dtype)] = fn
     return fn
@@ -220,9 +233,10 @@ def _check_flash(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention_bhsd: q, k and v on different "
                          f"devices: {q.device}, {k.device}, {v.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_bhsd: q, k and v must be "
-                         "contiguous")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention_bhsd: the head dim of q, k and v "
+                         "must be contiguous (stride 1); got strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -230,21 +244,46 @@ def _check_flash(q, k, v):
             "no backward either); call it under torch.no_grad()")
 
 
-def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Forward online-softmax attention.  q: (B,H,Sq,Dh); k, v:
-    (B,Hkv,Sk,Dh) with H % Hkv == 0, contiguous, one dtype (fp32 or bf16),
-    Dh in ``FLASH_HEAD_DIMS``.  Masks: causal (key <= query) and, for
-    ``window > 0``, key > query - window.  Returns (B,H,Sq,Dh) in q's
-    dtype.  A CUDA tensor launches ``csrc/flash_attention.cu`` or raises;
-    only a CPU tensor takes ``attention_plain``."""
+def _check_tma(*tensors):
+    """The bf16 kernel reads q, k and v through TMA tensor maps: 16-byte
+    base pointers and 16-byte batch, head and sequence strides (a dim of
+    extent 1 is never stepped, so its stride is free)."""
+    for name, t in zip("qkv", tensors):
+        step = TMA_ALIGN // t.element_size()
+        bad = [s for s, n in zip(t.stride()[:3], t.shape[:3])
+               if n > 1 and s % step]
+        if t.data_ptr() % TMA_ALIGN or bad:
+            raise ValueError(
+                f"flash_attention_bhsd: bf16 {name} needs a {TMA_ALIGN}-byte "
+                f"aligned base and batch/head/sequence strides that are "
+                f"multiples of {step} elements (TMA); got pointer % "
+                f"{TMA_ALIGN} = {t.data_ptr() % TMA_ALIGN}, strides "
+                f"{t.stride()}")
+
+
+def _check_row_strides(*tensors):
+    """The fp32 kernel steps from row to row inside a 64-row tile with a
+    32-bit offset: sequence strides below ``F32_MAX_ROW_STRIDE`` elements
+    (a sequence of length 1 is never stepped)."""
+    for name, t in zip(("q", "k", "v", "out"), tensors):
+        if t.shape[2] > 1 and t.stride(2) >= F32_MAX_ROW_STRIDE:
+            raise ValueError(
+                f"flash_attention_bhsd: fp32 {name} has a sequence stride "
+                f"of {t.stride(2)} elements; the kernel takes strides below "
+                f"{F32_MAX_ROW_STRIDE}")
+
+
+def _flash(q, k, v, out, causal, window):
+    """The counted launch behind both wrappers: q, k, v and ``out`` are
+    indexed (B,H,S,Dh) with any strides whose head dim has stride 1;
+    ``out=None`` allocates a contiguous (B,H,Sq,Dh) output."""
     global flash_launches, flash_plain_calls
     _check_flash(q, k, v)
     window = int(window)
     if q.device.type == "cpu":
         flash_plain_calls += 1
-        return attention_plain(q, k, v, causal=causal, window=window)
+        res = attention_plain(q, k, v, causal=causal, window=window)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bhsd: unsupported device "
                          f"{q.device}")
@@ -252,31 +291,55 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     if sq == 0 or sk == 0 or b == 0:
         raise ValueError("flash_attention_bhsd: empty sequence or batch")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
+    else:
+        _check_row_strides(q, k, v, out)
     args = FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, h, hkv, sq, sk, int(bool(causal)),
-                     max(window, 0), 1.0 / math.sqrt(dh))
+                     out.data_ptr(), q.stride()[:3], k.stride()[:3],
+                     v.stride()[:3], out.stride()[:3], b, h, hkv, sq, sk,
+                     dh, int(bool(causal)), max(window, 0),
+                     1.0 / math.sqrt(dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_kernel(q.dtype)(args, dh, stream)
+        err = _flash_kernel(q.dtype)(args, stream)
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention_bhsd: CUDA launch failed with error {err}")
+        what = _FLASH_ERRORS.get(err - err % 100000, "CUDA error")
+        raise RuntimeError(f"flash_attention_bhsd: launch failed with error "
+                           f"{err} ({what})")
     flash_launches += 1
     return out
 
 
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Forward online-softmax attention.  q: (B,H,Sq,Dh); k, v:
+    (B,Hkv,Sk,Dh) with H % Hkv == 0, one dtype (fp32 or bf16), Dh in
+    ``FLASH_HEAD_DIMS``, any strides whose head dim has stride 1 (bf16:
+    16-byte aligned, for TMA).  Masks: causal (key <= query) and, for
+    ``window > 0``, key > query - window.  Returns a contiguous
+    (B,H,Sq,Dh) tensor in q's dtype.  A CUDA tensor launches
+    ``csrc/flash_attention.cu`` (bf16: the tensor-core kernel; fp32: the
+    CUDA-core kernel) or raises; only a CPU tensor takes
+    ``attention_plain``."""
+    return _flash(q, k, v, None, causal, window)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Model layout: q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H,Dh), as the
-    JAX package's ``ops.flash_attention``.  The kernel takes contiguous
-    (B,H,S,Dh), so this makes transposed copies of q, k and v (taking
-    strides in the kernel is later work) and returns a (B,S,H,Dh) view of
-    the kernel's output."""
-    o = flash_attention_bhsd(q.transpose(1, 2).contiguous(),
-                             k.transpose(1, 2).contiguous(),
-                             v.transpose(1, 2).contiguous(),
-                             causal=causal, window=window)
-    return o.transpose(1, 2)
+    JAX package's ``ops.flash_attention``.  The kernel reads the views in
+    place through their strides and writes a (B,S,H,Dh) tensor allocated
+    in that layout: no copies."""
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q (B,S,H,Dh), got "
+                         f"{tuple(q.shape)}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+           out.transpose(1, 2), causal, window)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ the card they are the oracle the kernels are held against: bitwise for
 kernels, whose sums run in another order.  ``rwkv6_ref`` is the
 sequential RWKV6 oracle (the JAX package's ``rwkv6_ref``);
 ``rwkv6_plain`` is the chunked algorithm of the TPU kernel and the RWKV6
-kernel's plain version."""
+kernel's plain version.  ``limit_ratio`` says how far a kernel's output is
+from its oracle, in units of a stated limit."""
 from __future__ import annotations
 
 import math
@@ -143,3 +144,12 @@ def rwkv6_plain(r, k, v, logw, u, *, chunk: int = 64, state=None):
                                 lwf[:, :, sl], uf)
         outs.append(o)
     return torch.cat(outs, 2).to(r.dtype), S
+
+
+def limit_ratio(out, ref, rtol, atol_rel=0.0, atol=0.0):
+    """max |out - ref| / (atol + atol_rel * max|ref| + rtol * |ref|): <= 1
+    is within the limit, and a wrong answer's ratio is its margin over
+    the limit."""
+    o, r = out.double(), ref.double()
+    bound = atol + atol_rel * float(r.abs().max()) + rtol * r.abs()
+    return float(((o - r).abs() / bound.clamp_min(1e-300)).max())

@@ -49,11 +49,3 @@ def rwkv6_inputs(b, h, s, dh, gen, *, dtype=torch.float32, layout="bhsd"):
     u = 0.1 * randn(h, dh)
     return [t.to(dtype) for t in (r, k, v, logw, u)]
 
-
-def limit_ratio(out, ref, rtol, atol_rel=0.0, atol=0.0):
-    """max |out - ref| / (atol + atol_rel * max|ref| + rtol * |ref|): <= 1
-    is within the limit, and a wrong answer's ratio is its margin over
-    the limit."""
-    o, r = out.double(), ref.double()
-    bound = atol + atol_rel * float(r.abs().max()) + rtol * r.abs()
-    return float(((o - r).abs() / bound.clamp_min(1e-300)).max())

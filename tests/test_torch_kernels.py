@@ -124,6 +124,7 @@ def test_port_sources_import_no_jax_and_no_reference():
     names = {f.relative_to(PORT).as_posix() for f in files[:-1]}
     assert {"nn/attention.py", "nn/ssm.py", "nn/transformer.py",
             "models/lm.py", "kernels/rwkv6_cases.py",
+            "kernels/flash_cases.py",
             "serve/engine.py", "serve/queue.py", "launch/serve.py",
             "configs/tinyllama_1_1b.py", "obs/sink.py"} <= names
     for f in files:
@@ -274,8 +275,8 @@ def test_flash_wrapper_refusals(case, exc, match):
         q, k, v = q.double(), k.double(), v.double()
     elif case == "mixed_dtype":
         k = k.bfloat16()
-    elif case == "noncontiguous":
-        q = torch.zeros(1, 8, 4, 16).transpose(1, 2)
+    elif case == "noncontiguous":  # the head dim must have stride 1
+        q = torch.zeros(1, 4, 16, 8).transpose(2, 3)
     elif case == "gqa":
         k = v = torch.zeros(1, 3, 8, 16)
     elif case == "head_dim":
