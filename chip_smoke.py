@@ -22,6 +22,12 @@ Phases (any failure exits non-zero, before the last line is printed):
 4. training: the §5.1 ODE classifier at classifier_init's width (32
    channels, CIFAR-10 shape 32x32x3, 10 classes), batch 128, rk4, N_t = 4,
    pnode, fused, AdamW, 5 steps on seeded synthetic data;
+   then phases 3-4 captured: the CNF request and the classifier gradient
+   through ``repro_torch.launch.graphs.StepGraph`` (one CUDA graph each,
+   ``fused_lincomb`` launched from the replay; AdamW eager), BITWISE
+   equal to the eager runs (density, score, step-0 gradients, every
+   step's loss), with the first call (warm-up + capture), the replays,
+   the graph pools and a traced replay beside the eager times;
 5. flash kernel phase: ``flash_attention_bhsd`` against ``attention_plain``
    on the card, with the limits of ``repro_torch.kernels.flash_cases``:
    bf16 (the tensor-core kernel, p rounded to bf16 once) within the
@@ -39,8 +45,11 @@ Phases (any failure exits non-zero, before the last line is printed):
 6. LM serving at TinyLlama-1.1B's full width (22 layers, d 2048, 32/4
    heads, bf16, ``attn_impl="pallas"``, random weights drawn on the card
    from seed 0) through ``repro_torch.launch.serve.serve``: batch 8,
-   prompt 1920, 128 greedy tokens (max_seq 2048), decode slices of 8; then
-   one traced prefill and one traced decode slice;
+   prompt 1920, 128 greedy tokens (max_seq 2048), decode slices of 8,
+   decode replayed from a CUDA graph inside ``LMEngine``; then one traced
+   prefill and one traced replayed decode slice; then an eager greedy loop
+   (``lm.prefill`` + ``lm.decode_step``, 24 tokens) that must give the
+   serve's tokens bitwise, and its times beside the replayed ones;
 7. agreement: the kernel's prefill against the naive one on the same
    weights (bf16 at full depth; fp32 at full width and 2 layers, with 16
    greedy decode steps), and the card against the port on the CPU (fp32,
@@ -61,8 +70,9 @@ Phases (any failure exits non-zero, before the last line is printed):
    d_ff 14336, vocab 65536, bf16, random weights drawn on the card from
    seed 0), after TinyLlama's weights are freed: batch 8, prompt 2048
    (above the 256-token switch, so every layer's prefill runs the
-   kernel), 64 greedy tokens, decode slices of 8; then one traced prefill
-   and one traced decode slice;
+   kernel), 64 greedy tokens, decode slices of 8, decode replayed; then
+   one traced prefill, one traced replayed decode slice and the eager loop
+   as for TinyLlama;
 10. RWKV6 agreement: the chunked time-mix (the kernel) against the
    sequential scan at full width (fp32, batch 2 x 512), and the card
    against the port on the CPU (fp32, full width, 2 layers, batch 2,
@@ -75,8 +85,11 @@ Phases (any failure exits non-zero, before the last line is printed):
 The kernels' launch counters are set to 0 just before each main path
 (phases 3-4 for ``fused_lincomb``, phase 6 for the flash kernel, phase 9
 for the RWKV6 kernel) and read just after; comparisons made outside those
-windows are not counted.  TF32 is off wherever the card is compared with
-the CPU.
+windows are not counted.  The counters count where the host launches,
+which for a captured graph is the capture, not the replay, so the counts
+come from the eager runs; the traced replays count the kernels the
+device ran.  TF32 is off wherever the card is compared with the CPU;
+phases 3-4 and their captured runs use deterministic algorithms.
 """
 import os
 
@@ -172,9 +185,9 @@ MARKS = 64       # spin kernels that open and close every traced window
 
 
 def device_kernels(fn, iters=1):
-    """[(kernel name, device microseconds)] of the kernels ``fn`` runs,
-    from the profiler's CUPTI records, and the host milliseconds of the
-    window (ending in a synchronize).
+    """[(kernel name, device microseconds, start us, end us)] of the
+    kernels ``fn`` runs, from the profiler's CUPTI records, and the host
+    milliseconds of the window (ending in a synchronize).
 
     ``torch.profiler`` on the H100 machine can lose the records at either
     end of a session (more of them after a large trace; never in the
@@ -206,8 +219,9 @@ def device_kernels(fn, iters=1):
                       key=lambda e: e.time_range.start)
         is_mark = ["spin_kernel" in e.name for e in recs]
         if recs and is_mark[0] and is_mark[-1]:
-            return [(e.name, e.time_range.elapsed_us()) for e, m
-                    in zip(recs, is_mark) if not m], wall_ms
+            return [(e.name, e.time_range.elapsed_us(), e.time_range.start,
+                     e.time_range.end) for e, m in zip(recs, is_mark)
+                    if not m], wall_ms
         print(f"  (profiler: a session lost the records at one end of its "
               f"window; {len(recs)} records)", flush=True)
     fail(f"the profiler lost records of a traced window in {SESSIONS} "
@@ -218,7 +232,66 @@ def device_ms(fn, iters=20):
     """Device time per call: the durations of the kernels ``fn`` runs."""
     fn()
     kernels, _ = device_kernels(fn, iters)
-    return sum(us for _, us in kernels) / iters / 1e3
+    return sum(k[1] for k in kernels) / iters / 1e3
+
+
+def busy_us(kernels):
+    """Device busy time of ``device_kernels`` records: the length of the
+    union of their intervals, which is less than the sum of their
+    durations where kernels overlap (cuDNN's FFT convolutions run
+    branches on streams of their own, which a graph captures as parallel
+    nodes)."""
+    total, end = 0.0, None
+    for _, _, a, b in sorted(kernels, key=lambda k: k[2]):
+        if end is None or a >= end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def traced(label, fn, kernel, card, replayed=False):
+    """Trace one call of ``fn`` (``device_kernels``) and print where its
+    time goes: host wall, device busy, idle share, kernel count, the
+    launches and share of ``kernel`` (a substring of its name) and the six
+    kernels that take the most time.  A window whose records hold no
+    kernel is reported as such: for a replayed graph that means the
+    profiler did not resolve the graph's kernel records, never that the
+    graph ran none."""
+    kernels, wall_ms = device_kernels(fn)
+    busy = busy_us(kernels) / 1e3
+    summed = sum(k[1] for k in kernels) / 1e3
+    kn = [k[1] for k in kernels if kernel in k[0]]
+    res = dict(wall_ms=wall_ms, kernels=len(kernels),
+               kernel_launches=len(kn), kernel_ms=sum(kn) / 1e3,
+               summed_ms=summed)
+    if not kernels:
+        print(f"traced {label}: wall {wall_ms:.1f} ms; the profiler "
+              "recorded no kernel in the window"
+              + (" (it did not resolve the replayed graph's kernel "
+                 "records: busy time and idle share not measured)"
+                 if replayed else "") + f" {card}", flush=True)
+        return dict(res, busy_ms=None, idle_share=None, kernel_share=None,
+                    top=[])
+    res.update(busy_ms=busy, idle_share=1 - busy / wall_ms,
+               kernel_share=sum(kn) / 1e3 / summed)
+    print(f"traced {label}: wall {wall_ms:.1f} ms, device busy {busy:.3f} "
+          f"ms (kernel durations summed {summed:.3f}), idle share "
+          f"{1 - busy / wall_ms:.4f}; {len(kernels)} kernels; "
+          f"{kernel} {len(kn)} launches, {sum(kn) / 1e3:.3f} ms = "
+          f"{sum(kn) / 1e3 / summed:.4f} of kernel time {card}", flush=True)
+    by_name = {}
+    for n, us, _, _ in kernels:
+        cnt, tot = by_name.get(n, (0, 0.0))
+        by_name[n] = (cnt + 1, tot + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    res["top"] = [(n[:80], c, t / 1e3) for n, (c, t) in top]
+    for n, (c, t) in top:
+        print(f"    {t / 1e3:9.3f} ms {t / 1e3 / summed:.4f} x{c:<5d} "
+              f"{n[:100]}")
+    return res
 
 
 def smi_line():
@@ -366,6 +439,132 @@ def classifier_grads(params, images, labels, fused):
 
 
 # ---------------------------------------------------------------------------
+# phases 3b-4b: the CNF request and the classifier gradient captured
+# ---------------------------------------------------------------------------
+
+GRAPH_REPLAYS = 5   # replays of the captured CNF request that are timed
+
+
+def untraced_idle(trace, wall_ms, label, card):
+    """Put into ``trace`` (a ``traced`` result) the idle share of an
+    untraced window of ``wall_ms`` with the traced window's busy time: the
+    profiler's own host cost (a record for each of about 232k kernels in
+    a CNF request) lengthens a traced window."""
+    busy = trace["busy_ms"]
+    trace["idle_share_untraced"] = None if busy is None \
+        else 1 - busy / wall_ms
+    if busy is not None:
+        print(f"  {label}: idle share {trace['idle_share_untraced']:.4f} "
+              f"against the untraced {wall_ms:.1f} ms (traced busy "
+              f"{busy:.3f} ms) {card}", flush=True)
+
+
+def graph_ode_phase(card, cnf_theta, x, eager_cnf, cls_params, batches,
+                    eager_cls, opt):
+    """The CNF request and the classifier gradient through ``StepGraph``
+    (``fused_lincomb`` launched from the replayed graphs), against the
+    eager counted runs of phases 3-4 on the same inputs: the density and
+    score bitwise, the step-0 gradients and every step's loss bitwise (the
+    classifier trains its 5 steps again from the same weights, AdamW
+    eager).  Times: the first call (warm-up, capture and one replay), the
+    median of ``GRAPH_REPLAYS`` replays, a classifier step; then one
+    traced replayed request and step."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch.graphs import StepGraph
+
+    density, score = eager_cnf["out"]
+    cnf = StepGraph(lambda th, xx: cnf_requests(th, xx, fused=True),
+                    clone_outputs=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_g, s_g = cnf(cnf_theta, x)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    replay_ms = []
+    for _ in range(GRAPH_REPLAYS):
+        t0 = time.perf_counter()
+        d_r, s_r = cnf(cnf_theta, x)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(torch.equal(bits(a), bits(b)) for a, b in
+              ((d_g, density), (s_g, score), (d_r, density), (s_r, score))),
+          "CNF replayed density/score differ from the eager run: max|diff| "
+          f"{max_abs(d_r, density)}, {max_abs(s_r, score)}")
+    c = dict(first_ms=first_ms, ms=float(np.median(replay_ms)),
+             replay_ms=replay_ms, warmup_ms=cnf.warmup_ms,
+             capture_ms=cnf.capture_ms, pool_bytes=cnf.pool_bytes,
+             eager_ms=eager_cnf["ms"])
+    print(f"CNF request captured: replayed density and score == eager "
+          f"bitwise; first call {first_ms:.1f} ms (warm-up "
+          f"{cnf.warmup_ms:.1f}, capture {cnf.capture_ms:.1f}), replay "
+          f"{c['ms']:.1f} ms (median of {GRAPH_REPLAYS}: "
+          + ", ".join(f"{v:.1f}" for v in replay_ms)
+          + f"), graph pool {cnf.pool_bytes} B {card}", flush=True)
+    print(f"eager vs captured CNF request: {eager_cnf['ms']:.1f} vs "
+          f"{c['ms']:.1f} ms ({eager_cnf['ms'] / c['ms']:.2f}x) {card}",
+          flush=True)
+    c["trace"] = traced("CNF density+score request, replayed",
+                        lambda: cnf(cnf_theta, x), "lincomb_kernel", card,
+                        replayed=True)
+    untraced_idle(c["trace"], c["ms"], "CNF request", card)
+    del cnf, d_g, s_g, d_r, s_r
+
+    def grads(held, copied):
+        params, xb, lb = copied
+        return classifier_grads(params, xb, lb, fused=True)
+
+    cls = StepGraph(grads, clone_outputs=True)
+    state = opt.init(cls_params)
+    params, losses, step_ms = cls_params, [], []
+    for step, (xb, lb) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = cls((), (params, xb, lb))
+        if step == 0:
+            grads0 = g
+        with torch.no_grad():
+            params, state, _ = opt.update(
+                pytree.tree_unflatten(g, pytree.tree_structure(params)),
+                state, params)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    check(all(torch.equal(bits(a), bits(b))
+              for a, b in zip(grads0, eager_cls["grads0"])),
+          "classifier replayed step-0 gradients differ from the eager ones")
+    check(losses == eager_cls["losses"],
+          f"classifier replayed losses {losses} != eager "
+          f"{eager_cls['losses']}")
+    k = dict(first_ms=step_ms[0], ms=float(np.median(step_ms[1:])),
+             step_ms=step_ms, warmup_ms=cls.warmup_ms,
+             capture_ms=cls.capture_ms, pool_bytes=cls.pool_bytes,
+             eager_ms=eager_cls["ms"])
+    print(f"classifier captured: replayed step-0 gradients == eager bitwise "
+          f"and all {len(losses)} losses equal; first step {step_ms[0]:.1f} "
+          f"ms (warm-up {cls.warmup_ms:.1f}, capture {cls.capture_ms:.1f}), "
+          f"step {k['ms']:.1f} ms (median of steps 1-{len(step_ms) - 1}, "
+          f"gradient replayed, AdamW eager), graph pool {cls.pool_bytes} B "
+          f"{card}", flush=True)
+    print(f"eager vs captured classifier step: {eager_cls['ms']:.1f} vs "
+          f"{k['ms']:.1f} ms ({eager_cls['ms'] / k['ms']:.2f}x) {card}",
+          flush=True)
+    xb, lb = batches[0]
+
+    def step():
+        _, g = cls((), (cls_params, xb, lb))
+        with torch.no_grad():
+            opt.update(pytree.tree_unflatten(
+                g, pytree.tree_structure(cls_params)), state, cls_params)
+
+    k["trace"] = traced("classifier training step, gradient replayed", step,
+                        "lincomb_kernel", card, replayed=True)
+    untraced_idle(k["trace"], k["ms"], "classifier step", card)
+    return dict(cnf=c, classifier=k)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the flash kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -450,7 +649,7 @@ def flash_phase(card, dev):
               and torch.equal(o, oc.transpose(1, 2)),
               f"{dtype} flash_attention on (B,S,H,Dh) views differs from the "
               "contiguous call")
-        launched = [n for n, _ in
+        launched = [k[0] for k in
                     device_kernels(lambda: flash_attention(qs, ks, vs))[0]]
         check(len(launched) == 1 and "flash_fwd_kernel" in launched[0],
               f"flash_attention launched {launched}: copies on the card")
@@ -520,12 +719,14 @@ def flash_phase(card, dev):
 # phases 6-7: LM serving at TinyLlama-1.1B full width, and agreement
 # ---------------------------------------------------------------------------
 
-def traced_serve(cfg, params, spec, kernel, card, dev):
+def traced_serve(cfg, params, spec, kernel, card, dev, decode_ms):
     """Where the time goes: one traced prefill wave and one traced decode
     slice of ``spec``'s engine, with ``kernel``'s share of device time.
     Each engine's first step prefills its wave and later steps decode
     slices, so a repeated profiling session takes a fresh engine for the
-    prefill and the next slice for the decode."""
+    prefill and the next slice for the decode.  An engine's first decode
+    slice warms up and captures its decode graph, so it runs untraced and
+    the traced slices are replays."""
     import numpy as np
     from repro_torch.serve import LMEngine
 
@@ -547,35 +748,18 @@ def traced_serve(cfg, params, spec, kernel, card, dev):
         prefilled.append(fresh.pop())
         prefilled[-1].step()
 
-    traces = {}
-    for label, fn in (("prefill", prefill_wave),
-                      ("decode slice", lambda: prefilled[-1].step())):
-        kernels, wall_ms = device_kernels(fn)
-        busy = sum(us for _, us in kernels) / 1e3
-        kn = [us for n, us in kernels if kernel in n]
-        traces[label] = dict(wall_ms=wall_ms, busy_ms=busy,
-                             idle_share=1 - busy / wall_ms,
-                             kernels=len(kernels), kernel_launches=len(kn),
-                             kernel_ms=sum(kn) / 1e3,
-                             kernel_share=sum(kn) / 1e3 / busy)
-        print(f"traced {cfg.name} {label} ({spec['batch']} x "
-              f"{spec['prompt_len']}"
-              + (f", {spec['decode_slice']} steps" if label != "prefill"
-                 else "") + f"): wall {wall_ms:.1f} ms, device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}; "
-              f"{len(kernels)} kernels; {kernel} {len(kn)} launches, "
-              f"{sum(kn) / 1e3:.3f} ms = {sum(kn) / 1e3 / busy:.4f} of "
-              f"device time {card}", flush=True)
-        by_name = {}
-        for n, us in kernels:
-            cnt, tot = by_name.get(n, (0, 0.0))
-            by_name[n] = (cnt + 1, tot + us)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        traces[label]["top"] = [(n[:80], c, t / 1e3) for n, (c, t) in top]
-        for n, (c, t) in top:
-            print(f"    {t / 1e3:9.3f} ms {t / 1e3 / busy:.4f} x{c:<5d} "
-                  f"{n[:100]}")
-    del fresh, prefilled
+    shape = f"{spec['batch']} x {spec['prompt_len']}"
+    traces = {"prefill": traced(f"{cfg.name} prefill ({shape})",
+                                prefill_wave, kernel, card)}
+    del fresh
+    prefilled[-1].step()  # the first slice: warm-up and capture
+    traces["decode slice"] = traced(
+        f"{cfg.name} decode slice, replayed ({shape}, "
+        f"{spec['decode_slice']} steps)", lambda: prefilled[-1].step(),
+        kernel, card, replayed=True)
+    untraced_idle(traces["decode slice"], spec["decode_slice"] * decode_ms,
+                  f"{cfg.name} decode slice", card)
+    del prefilled
     return traces
 
 
@@ -605,6 +789,24 @@ def serve_phase(cfg, spec, kernel, counts, expected, card, dev):
           f"{cfg.param_dtype}), {n_params} parameters drawn on the card in "
           f"{time.time() - t0:.1f} s", flush=True)
 
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    allocated = torch.cuda.memory_allocated()
+    # cuBLAS keeps a workspace for each stream a GEMM ran on, through the
+    # caching allocator; clearing them (they come back at the next GEMM)
+    # tells them apart from the earlier phases' live tensors
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    workspaces = None
+    if clear is not None:
+        clear()
+        workspaces = allocated - torch.cuda.memory_allocated()
+    print(f"memory_allocated before the {cfg.name} serve: {allocated} B = "
+          f"parameters {param_bytes} B + other {allocated - param_bytes} B "
+          + (f"(cuBLAS workspaces {workspaces} B, cleared now; earlier "
+             f"phases' tensors {allocated - param_bytes - workspaces} B)"
+             if clear is not None else "(this torch cannot clear cuBLAS "
+             "workspaces: not split)"), flush=True)
+    allocated = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.time()
@@ -635,11 +837,88 @@ def serve_phase(cfg, spec, kernel, counts, expected, card, dev):
           f"{stats['decode_s'] * 1e3:.1f} ms, steady "
           f"{stats['tok_per_s_steady']:.1f} tok/s, end-to-end "
           f"{stats['tok_per_s']:.1f} tok/s, serve() wall {wall_s:.2f} s; "
-          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB) {card}",
-          flush=True)
-    traces = traced_serve(cfg, params, spec, kernel, card, dev)
+          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB; the "
+          f"serve's own {peak - allocated} B above what was allocated "
+          f"before it) {card}", flush=True)
+    (graph,) = stats["decode_graphs"]
+    steady_steps = stats["tok_per_s_steady"] * stats["steady_s"] \
+        / spec["batch"]
+    print(f"  decode replayed from a CUDA graph: warm-up "
+          f"{graph['warmup_ms']:.1f} ms, capture {graph['capture_ms']:.1f} "
+          f"ms, graph pool {graph['pool_bytes']} B, static decode state "
+          f"{stats['static_state_bytes']} B (both inside the peak); "
+          f"{stats['steady_s'] * 1e3 / steady_steps:.3f} ms a steady step "
+          f"{card}", flush=True)
+    traces = traced_serve(cfg, params, spec, kernel, card, dev,
+                          stats["steady_s"] * 1e3 / steady_steps)
     return params, dict(launches=launches, expected=expected, stats=stats,
-                        peak_bytes=peak, traces=traces)
+                        peak_bytes=peak, traces=traces, tokens=tokens,
+                        allocated_before=allocated, param_bytes=param_bytes,
+                        cublas_workspace_bytes=workspaces,
+                        decode_ms=stats["steady_s"] * 1e3 / steady_steps)
+
+
+LM_EAGER_TOKENS = 24   # greedy tokens of the eager comparison loops (>= 16)
+
+
+def eager_decode_phase(cfg, params, spec, res, card, dev):
+    """The engine's replayed decode against eager PyTorch on the card: an
+    eager greedy loop over ``lm.prefill`` + ``lm.decode_step`` on the
+    serve's weights and prompts (``SyntheticLM``, seed 0, as ``serve``
+    draws them), sampling as the engine does, must give the serve's first
+    ``LM_EAGER_TOKENS`` tokens bitwise; its times are the eager side of
+    the comparison (prefill, decode ms a step, steady and end-to-end
+    tok/s over its own tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+
+    b, n = spec["batch"], min(LM_EAGER_TOKENS, spec["gen"])
+    cell = ShapeCell("serve", spec["prompt_len"], b, "prefill")
+    prompt = SyntheticLM(cfg, cell, seed=0).batch(0)["tokens"].numpy()
+    toks = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state, logits = lm.prefill(cfg, params, {"tokens": toks},
+                                   spec["prompt_len"] + spec["gen"])
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out = [tok[:, 0]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(n - 1):
+            logits, state = lm.decode_step(cfg, params, state, tok,
+                                           spec["prompt_len"] + i)
+            tok = torch.argmax(torch.nan_to_num(logits), dim=-1)[:, None]
+            out.append(tok[:, 0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    eager = torch.stack(out, 1).cpu().to(torch.int32)
+    served = res["tokens"][:, :n]
+    check(torch.equal(eager, served),
+          f"{cfg.name}: the engine's replayed greedy tokens differ from the "
+          f"eager loop's: {int((eager != served).sum())} of {eager.numel()}")
+    stats = res["stats"]
+    e = dict(prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3 / (n - 1),
+             tok_per_s_steady=b * (n - 1) / (t2 - t1),
+             tok_per_s=b * n / (t2 - t0), tokens=n)
+    c = dict(prefill_ms=stats["prefill_s"] * 1e3, decode_ms=res["decode_ms"],
+             tok_per_s_steady=stats["tok_per_s_steady"],
+             tok_per_s=stats["tok_per_s"], tokens=spec["gen"])
+    print(f"agreement: {cfg.name} engine (decode replayed) == eager loop "
+          f"(lm.prefill + lm.decode_step), greedy tokens bitwise, batch {b}, "
+          f"{n} tokens {card}", flush=True)
+    print(f"eager vs captured {cfg.name} decode: {e['decode_ms']:.3f} vs "
+          f"{c['decode_ms']:.3f} ms a step "
+          f"({e['decode_ms'] / c['decode_ms']:.2f}x); steady {e['tok_per_s_steady']:.1f} vs "
+          f"{c['tok_per_s_steady']:.1f} tok/s; end to end "
+          f"{e['tok_per_s']:.1f} tok/s ({n} tokens) vs {c['tok_per_s']:.1f} "
+          f"tok/s ({spec['gen']} tokens, the capture included); prefill "
+          f"{e['prefill_ms']:.1f} vs {c['prefill_ms']:.1f} ms {card}",
+          flush=True)
+    return dict(eager=e, captured=c)
 
 
 def lm_agreement_phase(cfg, params, card, dev):
@@ -1109,17 +1388,21 @@ def main():
             opt.update(pytree.tree_unflatten(
                 grads, pytree.tree_structure(cls_params)), state, cls_params)
 
-    for label, fn in (("CNF density+score requests",
-                       lambda: cnf_requests(cnf_theta, x, fused=True)),
-                      ("classifier training step", step)):
-        kernels, wall_ms = device_kernels(fn)
-        busy = sum(us for _, us in kernels) / 1e3
-        lin = [us for n, us in kernels if "lincomb_kernel" in n]
-        print(f"traced {label}: wall {wall_ms:.1f} "
-              f"ms, device busy {busy:.3f} ms, idle share "
-              f"{1 - busy / wall_ms:.4f}; {len(kernels)} kernels; "
-              f"fused_lincomb {len(lin)} launches, {sum(lin) / 1e3:.3f} ms "
-              f"= {sum(lin) / 1e3 / busy:.4f} of device time {card}")
+    eager_traces = {
+        "cnf": traced("CNF density+score requests, eager",
+                      lambda: cnf_requests(cnf_theta, x, fused=True),
+                      "lincomb_kernel", card),
+        "classifier": traced("classifier training step, eager", step,
+                             "lincomb_kernel", card)}
+
+    # -- phases 3b-4b: the same computations captured -------------------------
+    graphs = graph_ode_phase(
+        card, cnf_theta, x, dict(out=(density, score), ms=cnf_ms[1]),
+        cls_params, batches, dict(grads0=grads0, losses=losses,
+                                  ms=float(np.median(step_ms[1:]))),
+        AdamW(lr=2e-3, warmup_steps=2, total_steps=CLS["steps"]))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 5: the flash kernel ------------------------------------------
     torch.use_deterministic_algorithms(False)  # the LM phases hold tolerances
@@ -1131,6 +1414,9 @@ def main():
         lm_cfg, LM, "flash_fwd_kernel",
         lambda: (ops.flash_launches, ops.flash_plain_calls),
         expected_flash_calls(lm_cfg, 1), card, dev)
+
+    lm_res["eager_vs_captured"] = eager_decode_phase(lm_cfg, lm_params, LM,
+                                                     lm_res, card, dev)
 
     # -- phase 7: agreement ---------------------------------------------------
     lm_agreement_phase(lm_cfg, lm_params, card, dev)
@@ -1151,6 +1437,8 @@ def main():
         expected_rwkv6_calls(rw_cfg, RWKV["prompt_len"], 1), card, dev)
     check(rw_res["expected"] == rw_cfg.n_layers == 32,
           f"expected_rwkv6_calls gives {rw_res['expected']}, not one a layer")
+    rw_res["eager_vs_captured"] = eager_decode_phase(rw_cfg, rw_params, RWKV,
+                                                     rw_res, card, dev)
     del rw_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1180,6 +1468,8 @@ def main():
         "library_ms": None,
         "timed_case": {k: main_row[k] for k in ("shape", "n_terms", "form",
                                                 "dtype", "bytes")},
+        "eager_traces": eager_traces,
+        "captured": graphs,
         "card": smi,
     }, {
         "name": "flash_attention",
@@ -1217,6 +1507,12 @@ def main():
                   "tok_per_s_steady": lm_res["stats"]["tok_per_s_steady"],
                   "tok_per_s": lm_res["stats"]["tok_per_s"],
                   "peak_bytes": lm_res["peak_bytes"],
+                  "allocated_before": lm_res["allocated_before"],
+                  "param_bytes": lm_res["param_bytes"],
+                  "cublas_workspace_bytes": lm_res["cublas_workspace_bytes"],
+                  "static_state_bytes": lm_res["stats"]["static_state_bytes"],
+                  "decode_graph": lm_res["stats"]["decode_graphs"][0],
+                  "eager_vs_captured": lm_res["eager_vs_captured"],
                   "traces": lm_res["traces"]},
         "card": smi,
     }, {
@@ -1251,6 +1547,12 @@ def main():
                   "tok_per_s_steady": rw_res["stats"]["tok_per_s_steady"],
                   "tok_per_s": rw_res["stats"]["tok_per_s"],
                   "peak_bytes": rw_res["peak_bytes"],
+                  "allocated_before": rw_res["allocated_before"],
+                  "param_bytes": rw_res["param_bytes"],
+                  "cublas_workspace_bytes": rw_res["cublas_workspace_bytes"],
+                  "static_state_bytes": rw_res["stats"]["static_state_bytes"],
+                  "decode_graph": rw_res["stats"]["decode_graphs"][0],
+                  "eager_vs_captured": rw_res["eager_vs_captured"],
                   "traces": rw_res["traces"]},
         "card": smi,
     }]

@@ -1,7 +1,10 @@
 """Paper §5.2: FFJORD continuous normalizing flow for density estimation,
 trained with the PNODE adjoint (synthetic two-moons-style 2-d target; the
 tabular POWER/MINIBOONE/BSDS300 shapes are for the benchmarks).  Runs on
-the card with the fused stage kernel unless told otherwise.
+the card with the fused stage kernel unless told otherwise.  The loss and
+its gradient are one ``StepGraph`` (the JAX example jits
+``value_and_grad``): captured as a CUDA graph at the first iteration and
+replayed after it; AdamW stays eager, as in the JAX example.
 
   PYTHONPATH=src python -m repro_torch.examples.cnf_density [--iters 200] \
       [--adjoint pnode|pnode2|revolve|revolve2] [--device cuda|cpu] \
@@ -17,6 +20,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.cnf import cnf_log_prob, cnf_sample
+from repro_torch.launch.graphs import StepGraph
 from repro_torch.models.ode_nets import cnf_vf, cnf_vf_init, resolve_device
 from repro_torch.optim.adamw import AdamW
 
@@ -62,18 +66,25 @@ def main(argv=None):
                           adjoint=args.adjoint, fused_stages=args.fused, **kw)
         return -lp.mean()
 
+    def value_and_grad(held, copied):
+        theta, x = copied
+        leaves = [p.detach().requires_grad_(True)
+                  for p in pytree.tree_leaves(theta)]
+        loss = nll(pytree.tree_unflatten(leaves, pytree.tree_structure(theta)),
+                   x)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    # theta is copied in: AdamW replaces its tensors every iteration
+    step = StepGraph(value_and_grad, clone_outputs=True)
     state = opt.init(theta)
     rs = np.random.RandomState(args.seed + 42)
     t0 = time.time()
     for it in range(args.iters):
         x = torch.from_numpy(two_moons(rs, args.batch)).to(device)
-        leaves = [p.requires_grad_(True) for p in pytree.tree_leaves(theta)]
-        loss = nll(theta, x)
-        grads = pytree.tree_unflatten(list(torch.autograd.grad(loss, leaves)),
-                                      pytree.tree_structure(theta))
+        loss, grads = step((), (theta, x))
+        grads = pytree.tree_unflatten(grads, pytree.tree_structure(theta))
         with torch.no_grad():
-            theta, state, _ = opt.update(
-                grads, state, pytree.tree_map(torch.Tensor.detach, theta))
+            theta, state, _ = opt.update(grads, state, theta)
         if it % max(1, args.iters // 10) == 0:
             print(f"iter {it:4d} nll {loss.item():.4f} "
                   f"({(time.time()-t0)/(it+1)*1e3:.0f} ms/iter on "

@@ -2,7 +2,10 @@
 the conv vector field), trained with selectable adjoint policies on a
 synthetic CIFAR-10 stand-in (the dataset is not available offline; shapes,
 batch and class count match).  Runs on the card with the fused stage
-kernel unless told otherwise.
+kernel unless told otherwise.  The loss and its gradient are one
+``StepGraph`` (the JAX example jits ``value_and_grad``): captured as a
+CUDA graph at the first step and replayed after it; AdamW stays eager, as
+in the JAX example.
 
   PYTHONPATH=src python -m repro_torch.examples.image_classification \
       [--steps 30] [--adjoint pnode] [--method rk4] [--n-steps 2] \
@@ -18,6 +21,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.depth_ode import ODEBlock
+from repro_torch.launch.graphs import StepGraph
 from repro_torch.models.ode_nets import (classifier_apply, classifier_init,
                                          conv_vf, resolve_device,
                                          softmax_xent)
@@ -69,20 +73,27 @@ def main(argv=None):
         return classifier_apply(params, x,
                                 odeint_fn=lambda vf, u, th: block(u, th))
 
+    def value_and_grad(held, copied):
+        params, x, labels = copied
+        leaves = [p.detach().requires_grad_(True)
+                  for p in pytree.tree_leaves(params)]
+        logits = forward(pytree.tree_unflatten(
+            leaves, pytree.tree_structure(params)), x)
+        loss = softmax_xent(logits, labels)
+        return (loss.detach(), logits.detach(),
+                list(torch.autograd.grad(loss, leaves)))
+
+    # params are copied in: AdamW replaces their tensors every step
+    grad_step = StepGraph(value_and_grad, clone_outputs=True)
     t0 = time.time()
     for step in range(args.steps):
         x, labels = synthetic_cifar(rs, templates, args.batch, args.image_size)
         x = torch.from_numpy(x).to(device)
         labels = torch.from_numpy(labels).to(device)
-        leaves = [p.requires_grad_(True) for p in pytree.tree_leaves(params)]
-        logits = forward(params, x)
-        loss = softmax_xent(logits, labels)
-        grads = pytree.tree_unflatten(
-            list(torch.autograd.grad(loss, leaves)),
-            pytree.tree_structure(params))
+        loss, logits, grads = grad_step((), (params, x, labels))
+        grads = pytree.tree_unflatten(grads, pytree.tree_structure(params))
         with torch.no_grad():
-            params, state, _ = opt.update(
-                grads, state, pytree.tree_map(torch.Tensor.detach, params))
+            params, state, _ = opt.update(grads, state, params)
         if step % max(1, args.steps // 10) == 0:
             acc = float((logits.argmax(-1) == labels).float().mean())
             print(f"step {step:4d} loss {loss.item():.4f} acc {acc:.3f} "

@@ -16,6 +16,10 @@ record:
   ``tok_per_s_steady``  tokens emitted by post-warm-up decode calls / steady_s
   ``tok_per_s``         ALL tokens (batch * gen, the prefill's first token
                         included) over the end-to-end wall
+  ``static_state_bytes``  the engines' static decode states
+  ``decode_graphs``     each engine's decode graph: warm-up and capture ms
+                        and pool bytes (None on the CPU, where nothing is
+                        captured)
 
 ``--replicas N`` runs N engines on the one device with the lanes split
 across them, and aggregates their stats; it does not shard (the
@@ -97,6 +101,11 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
     merged = [c for eng in engines for c in eng.call_log]
     stats = _stats_from_log(merged, tokens_total=batch * gen)
     stats["replicas"] = replicas
+    stats["static_state_bytes"] = sum(e.static_state_bytes for e in engines)
+    stats["decode_graphs"] = [
+        {"warmup_ms": e.decode_graph.warmup_ms,
+         "capture_ms": e.decode_graph.capture_ms,
+         "pool_bytes": e.decode_graph.pool_bytes} for e in engines]
     StructuredLogger(log_fn=log_fn, sink=sink).log(
         "serve.done",
         f"[serve] warm-up {stats['warmup_s']*1e3:.0f} ms, "

@@ -5,7 +5,8 @@
 Batch dict conventions (the JAX package's):
   train:    {"tokens": (B, S) int, "targets": (B, S) int}
   prefill:  {"tokens": (B, S) int}
-  decode:   token (B, 1) int and a Python int position + the decode state
+  decode:   token (B, 1) int, a position (a 0-d int tensor on the state's
+            device or a Python int) and the decode state
 
 The encoder-decoder family and the vision/audio frontend stubs raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 13), as do the layer kinds
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.ode_nets import resolve_device
+from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import transformer as tf
 from repro_torch.nn.layers import (embedding, embedding_init, layernorm,
                                    layernorm_init, rmsnorm, rmsnorm_init)
@@ -123,12 +125,16 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 
 def decode_step(cfg: ModelConfig, params: Params, state, token: torch.Tensor,
-                pos: int):
-    """One decode step.  token: (B, 1) int; pos: Python int.  The decode
-    state is updated in place (JAX donates and returns it).  Returns
-    (logits (B, V), state)."""
+                pos):
+    """One decode step.  token: (B, 1) int; pos: a 0-d integer tensor on
+    the token's device (the JAX package's scalar int32), or a Python int,
+    which becomes such a tensor here, so both forms run the same ops and a
+    CUDA graph can capture the step with the position in a buffer.  The
+    decode state is updated in place (JAX donates and returns it).
+    Returns (logits (B, V), state)."""
+    pos = attn_mod.decode_position(pos, token.device)
     x = _embed_tokens(cfg, params, token)
-    x, state = tf.decode_stack(cfg, params["blocks"], state, x, int(pos))
+    x, state = tf.decode_stack(cfg, params["blocks"], state, x, pos)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x)[:, 0], state
 

@@ -189,28 +189,50 @@ def attention_block(params, x: torch.Tensor, *, n_heads: int,
 # KV-cache decode
 # ---------------------------------------------------------------------------
 
+def decode_position(pos, device) -> torch.Tensor:
+    """A decode position as the 0-d int64 tensor on ``device`` that the
+    decode path takes: an integer tensor is checked and widened, a Python
+    int is filled in on the device (a kernel, not a copy from the host)."""
+    if not torch.is_tensor(pos):
+        return torch.full((), int(pos), dtype=torch.long, device=device)
+    if pos.dim() != 0 or pos.dtype.is_floating_point \
+            or pos.dtype == torch.bool or pos.device != torch.device(device):
+        raise ValueError(
+            f"a decode position must be a 0-d integer tensor on {device}, "
+            f"got {pos.device}/{pos.dtype}/{tuple(pos.shape)}")
+    return pos.long()
+
+
 def decode_attention_block(params, x: torch.Tensor, cache_k: torch.Tensor,
-                           cache_v: torch.Tensor, pos: int, *, n_heads: int,
+                           cache_v: torch.Tensor, pos, *, n_heads: int,
                            rope_theta: float, window: int = 0):
     """One-token decode.  x: (B, 1, D); cache_k/v: (B, S_max, Hkv, Dh);
-    pos: the current position (a Python int).  Writes the new key and value
-    into the caches IN PLACE at ``pos`` (the JAX package returns updated
-    caches from ``dynamic_update_slice`` on a donated state; here the
-    caller's state tensors are that state).  Returns (out, cache_k,
-    cache_v).  Attends over all S_max slots with a mask, as JAX does; the
-    kv heads are grouped rather than repeated, which takes the same dot
-    products."""
-    posb = torch.full((x.shape[0], 1), pos, device=x.device)
-    q, k_new, v_new = _qkv(params, x, posb, rope_theta)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
-    b, s_max, hkv, dh = cache_k.shape
+    pos: the current position (``decode_position``: a 0-d integer tensor
+    on x's device, or a Python int; nothing about a tensor position is
+    read on the host, so a CUDA graph can capture the step).
+    Writes the new key and value into the caches IN PLACE at ``pos``
+    (``index_copy_``; the JAX package returns updated caches from
+    ``dynamic_update_slice`` on a donated state; here the caller's state
+    tensors are that state).  Returns (out, cache_k, cache_v).  Attends
+    over all S_max slots with a mask, as JAX does; the kv heads are grouped
+    rather than repeated, which takes the same dot products.
+
+    Under ``torch.use_deterministic_algorithms(True)`` PyTorch routes
+    ``index_copy_`` on the card through an indexed write that checks the
+    index range on the host, which a CUDA graph capture refuses."""
+    pos = decode_position(pos, x.device)
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(params, x, pos.expand(b, 1), rope_theta)
+    slot = pos.reshape(1)
+    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    _, s_max, hkv, dh = cache_k.shape
     h = q.shape[2]
     qg = q.float().reshape(b, hkv, h // hkv, dh)               # (B,G,R,Dh)
     logits = torch.einsum("bgrd,bkgd->bgrk", qg, cache_k.float())
     logits = logits / math.sqrt(dh)
-    ok = attend_mask(torch.full((1,), pos, device=x.device),
-                     torch.arange(s_max, device=x.device), True, window)[0]
+    ok = attend_mask(slot, torch.arange(s_max, device=x.device), True,
+                     window)[0]
     logits = torch.where(ok, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", probs, cache_v.float())

@@ -269,8 +269,9 @@ def prefill_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def decode_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 state, pos: int, window: int):
-    """One-token decode through a single layer.  x: (B, 1, D).  The
+                 state, pos: torch.Tensor, window: int):
+    """One-token decode through a single layer.  x: (B, 1, D); pos: a
+    0-d int64 tensor on x's device (``models/lm.py::decode_step``).  The
     layer's state (KV cache, or RWKV6 ``S``, ``tm_prev`` and ``cm_prev``)
     is updated in place.  Returns (x, state)."""
     _check_kind(cfg, kind)
@@ -296,7 +297,7 @@ def decode_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 
 
 def decode_stack(cfg: ModelConfig, params: Params, state, x: torch.Tensor,
-                 pos: int):
+                 pos: torch.Tensor):
     unit, n_units, rem = stack_plan(cfg)
     w_scan, w_rem = _unit_windows(cfg)
     for u in range(n_units):

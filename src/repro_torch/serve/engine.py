@@ -7,6 +7,18 @@ into *waves* that prefill together and decode in lockstep.  Between decode
 slices of the active wave the engine prefills the next wave, so when the
 active wave retires the next one starts decoding at once.
 
+Decode runs through a ``StepGraph`` (``launch/graphs.py``), the port's
+counterpart of the JAX package's ``jax.jit(decode, donate_argnums=(1,))``:
+on the card it is captured once as a CUDA graph and replayed every step.
+The engine owns one static decode state, into which each wave's prefill
+state is copied when the wave becomes active, and the graph reads it,
+the token and the position (a 0-d device tensor) at fixed addresses.
+Warm-up and capture run on that static state before any wave uses it, as
+a decode step writes its state in place.  Prefill stays eager (it is
+device-bound and is where the flash and RWKV6 kernels launch), and so
+does sampling, as the JAX package jits decode alone: the Gumbel draws at
+``temperature > 0`` use the engine's generator outside the graph.
+
 Not ported yet: ``ODEEngine`` (ROADMAP Queue 1 item 12), the mesh and
 sharded replicas (item 14), and the fault sites / metrics hooks (item 11).
 """
@@ -17,7 +29,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from repro_torch.launch.graphs import StepGraph
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.ode_nets import resolve_device
@@ -54,13 +68,24 @@ class LMEngine:
 
     ``call_log`` records every device call (op, wall seconds, tokens
     emitted, lanes, and ``compile``, which here marks the first call of
-    each op, the one that pays the kernel build and CUDA/cuBLAS set-up).
-    ``launch/serve.py`` splits warm-up from steady state with it.
+    each op, the one that pays the kernel build, the CUDA/cuBLAS set-up
+    and the decode graph's warm-up and capture).  ``launch/serve.py``
+    splits warm-up from steady state with it.
+
+    ``aging`` is the queue's ticks-to-priority rate: 0 dispatches by
+    strict priority, the default 1.0 lets waiting requests age.
+
+    The static decode state adds ``init_decode_state(cfg, lanes,
+    max_seq)``'s bytes to the device memory, and the captured graph its
+    pool (``decode_graph.pool_bytes``).  Decode is captured with
+    ``index_copy_`` writing the KV cache, which a capture refuses under
+    ``torch.use_deterministic_algorithms(True)``.
     """
 
     def __init__(self, cfg, *, lanes: int, prompt_len: int, max_gen: int,
                  decode_slice: int = 4, temperature: float = 0.0,
-                 seed: int = 0, params=None, device="cuda"):
+                 seed: int = 0, params=None, device="cuda",
+                 aging: float = 1.0):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lanes = int(lanes)
@@ -72,7 +97,8 @@ class LMEngine:
         self.max_seq = self.prompt_len + self.max_gen
         self.queue = RequestQueue(
             kinds=("lm",), dim=self.prompt_len,
-            max_payload_bytes=max(1 << 20, 8 * self.prompt_len))
+            max_payload_bytes=max(1 << 20, 8 * self.prompt_len),
+            aging=aging)
         self.call_log: List[Dict[str, Any]] = []
         self._active: Optional[_Wave] = None
         self._staged: Optional[_Wave] = None
@@ -85,6 +111,19 @@ class LMEngine:
         self._prefill_fn = make_prefill_step(cfg, max_seq=self.max_seq)
         self._decode_fn = make_decode_step(cfg)
         self._gen = torch.Generator(self.device).manual_seed(self.seed + 1)
+        # what the decode graph reads at fixed addresses: the static state
+        # and position here, the token in the graph's own buffer
+        self._state = lm_mod.init_decode_state(cfg, self.lanes, self.max_seq,
+                                               device=self.device)
+        self._pos = torch.zeros((), dtype=torch.long, device=self.device)
+        self.decode_graph = StepGraph(self._decode_logits,
+                                      clone_outputs=False)
+
+    @property
+    def static_state_bytes(self) -> int:
+        """Device bytes of the static decode state the graph reads."""
+        return sum(t.numel() * t.element_size()
+                   for t in pytree.tree_leaves(self._state))
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt, *, gen: Optional[int] = None,
@@ -135,6 +174,26 @@ class LMEngine:
                               "lanes": len(batch)})
         return wave
 
+    def _decode_logits(self, held, copied) -> torch.Tensor:
+        """The captured step: logits of one decode step, whose state
+        update lands in the static state in place."""
+        (params, state), (tok, pos) = held, copied
+        logits, _ = self._decode_fn(params, state, tok, pos)
+        return logits
+
+    def _activate(self, wave: _Wave) -> None:
+        """Move ``wave`` onto the static state.  The engine's first wave
+        warms up and captures the decode graph first, on the static state
+        that no wave holds yet; then the wave's prefill state is copied in
+        leaf by leaf and dropped."""
+        held = (self.params, self._state)
+        if not self.decode_graph.captured:
+            self.decode_graph.capture(held, (wave.tok, self._pos))
+        for dst, src in zip(pytree.tree_leaves(self._state),
+                            pytree.tree_leaves(wave.state)):
+            dst.copy_(src)
+        wave.state = self._state
+
     def _decode_slice(self, wave: _Wave) -> None:
         k = min(self.decode_slice, wave.max_gen - len(wave.emitted))
         if k <= 0:
@@ -142,10 +201,14 @@ class LMEngine:
         compile_ = self._decode_calls == 0
         t_start = time.time()
         with torch.no_grad():
+            if wave.state is not self._state:
+                self._activate(wave)
+            held = (self.params, self._state)
             for _ in range(k):
                 i = len(wave.emitted) - 1  # decode steps taken so far
-                logits, wave.state = self._decode_fn(
-                    self.params, wave.state, wave.tok, wave.pos0 + i)
+                self._pos.fill_(wave.pos0 + i)
+                logits = self.decode_graph(held, (wave.tok, self._pos))
+                # read before the next replay overwrites the logits
                 wave.tok = self._sample(torch.nan_to_num(logits))[:, None]
                 wave.emitted.append(wave.tok[:, 0])
         self._sync()

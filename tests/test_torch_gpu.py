@@ -10,7 +10,11 @@ count on an LM prefill, and the kernel's prefill against the naive one;
 ``rwkv6_chunked_bhsd`` against ``rwkv6_plain`` (the limits of
 ``repro_torch.kernels.rwkv6_cases``) and against the
 sequential ``rwkv6_ref`` at the JAX package's limits, its refusals, and
-its launch count on an RWKV6 prefill.
+its launch count on an RWKV6 prefill; and CUDA-graph replay
+(``repro_torch.launch.graphs.StepGraph``) bitwise equal to eager PyTorch:
+decode of both LM families, the fixed-step gradient under every adjoint
+policy, the CNF request, ``LMEngine`` sampling at temperature > 0, and
+the refusals (a changed held tensor, a capture that fails).
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -37,8 +41,11 @@ from repro_torch.kernels.ref import (attention_plain, limit_ratio,
                                      lincomb_plain, rwkv6_plain, rwkv6_ref)
 from repro_torch.kernels.rwkv6_cases import (RWKV6_GRID, RWKV6_REF_TOL,
                                              RWKV6_TOL, rwkv6_inputs)
+from repro_torch.core.cnf import cnf_log_prob
+from repro_torch.launch.graphs import StepGraph
 from repro_torch.models import lm, ode_nets
 from repro_torch.nn import ssm
+from repro_torch.serve import LMEngine
 
 # deterministic cuBLAS needs this before CUDA starts; harmless elsewhere
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -71,8 +78,9 @@ def cuda():
 
 
 def _bits(x):
-    return x.contiguous().view(torch.int32 if x.dtype == torch.float32
-                               else torch.int64)
+    return x.contiguous().view({torch.float32: torch.int32,
+                                torch.bfloat16: torch.int16}.get(
+                                    x.dtype, torch.int64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -407,3 +415,159 @@ def test_rwkv6_prefill_launch_count_and_cpu_agreement(cuda):
     torch.testing.assert_close(state["scan"]["0_w"]["S"].cpu(),
                                state_c["scan"]["0_w"]["S"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: replay against eager, bitwise
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_nondet(cuda):
+    """The card with deterministic algorithms off, as the LM serve runs:
+    under them PyTorch routes decode's KV-cache ``index_copy_`` through an
+    indexed write that checks its range on the host, which a capture
+    refuses."""
+    torch.use_deterministic_algorithms(False)
+    yield cuda
+
+
+def _same_bits(a, b):
+    la, lb = torch.utils._pytree.tree_leaves(a), \
+        torch.utils._pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-7b"])
+def test_decode_replay_bitwise_eager(cuda_nondet, arch, dtype):
+    dev = cuda_nondet
+    cfg = reduced(get_arch(arch), n_layers=2, d_model=256, n_heads=4,
+                  head_dim=64, d_ff=512, vocab_size=512, param_dtype=dtype,
+                  compute_dtype=dtype)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 40))).to(dev)
+
+    def step(held, copied):
+        return lm.decode_step(cfg, held[0], held[1], *copied)[0]
+
+    graph = StepGraph(step, clone_outputs=False)
+    with torch.no_grad():
+        st_eager, last = lm.prefill(cfg, params, {"tokens": toks}, 56)
+        tok = torch.argmax(last, -1)[:, None]
+        pos = torch.zeros((), dtype=torch.long, device=dev)
+        # warm-up and capture on a state of its own, then the prefill's in
+        st_graph = lm.init_decode_state(cfg, 2, 56, device=dev)
+        graph.capture((params, st_graph), (tok, pos))
+        for a, b in zip(torch.utils._pytree.tree_leaves(st_graph),
+                        torch.utils._pytree.tree_leaves(st_eager)):
+            a.copy_(b)
+        for i in range(12):
+            le, st_eager = lm.decode_step(cfg, params, st_eager, tok, 40 + i)
+            pos.fill_(40 + i)
+            lg = graph((params, st_graph), (tok, pos))
+            assert _same_bits(le, lg)
+            tok = torch.argmax(le, -1)[:, None]
+    assert graph.graph is not None and graph.pool_bytes > 0
+    assert _same_bits(st_eager, st_graph)
+
+
+def _policy_inputs(device, seed):
+    rs = np.random.RandomState(seed)
+    u0 = torch.tensor(rs.randn(16, 5), device=device)
+    th = {"W": torch.tensor(0.4 * rs.randn(5, 5), device=device),
+          "b": torch.tensor(0.1 * rs.randn(5), device=device)}
+    return u0, th
+
+
+@pytest.mark.parametrize("policy", tadj.POLICIES)
+def test_odeint_gradient_replay_bitwise_eager(cuda, policy):
+    f, _, _ = _mlp_case(cuda, torch.float64)
+    ncheck = 3 if policy.startswith("revolve") else None
+    fused = policy in ("pnode", "pnode2", "revolve", "revolve2")
+
+    def grads(held, copied):
+        u0, th = copied
+        a = u0.detach().requires_grad_(True)
+        b = {k: v.detach().requires_grad_(True) for k, v in th.items()}
+        uf = tadj.odeint(f, a, b, dt=0.1, n_steps=6, method="rk4",
+                         adjoint=policy, ncheck=ncheck, fused_stages=fused)
+        return list(torch.autograd.grad((uf ** 2).sum(), [a, b["W"],
+                                                          b["b"]]))
+
+    graph = StepGraph(grads, clone_outputs=True)
+    for seed in (0, 1):  # the second replay reads new copied inputs
+        args = _policy_inputs(cuda, seed)
+        assert _same_bits(graph((), args), grads((), args))
+    assert graph.graph is not None
+
+
+def test_cnf_request_replay_bitwise_eager(cuda):
+    theta = ode_nets.cnf_vf_init(torch.Generator().manual_seed(0), 6,
+                                 hidden=(32, 32, 32), device=cuda)
+    kw = dict(dt=0.25, n_steps=4, method="dopri5", adjoint="pnode",
+              fused_stages=True)
+
+    def request(th, x):
+        with torch.no_grad():
+            density = cnf_log_prob(ode_nets.cnf_vf, x, th, **kw)
+        xg = x.detach().clone().requires_grad_(True)
+        lp = cnf_log_prob(ode_nets.cnf_vf, xg, th, **kw)
+        return density, torch.autograd.grad(lp.sum(), xg)[0]
+
+    graph = StepGraph(request, clone_outputs=True)
+    for seed in (0, 1):
+        x = torch.tensor(np.random.RandomState(seed).randn(256, 6),
+                         dtype=torch.float32, device=cuda)
+        assert _same_bits(graph(theta, x), request(theta, x))
+
+
+def test_engine_replay_sampling_matches_the_eager_loop(cuda_nondet):
+    dev = cuda_nondet
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    prompts = np.random.RandomState(2).randint(0, 256, (2, 12))
+    kw = dict(lanes=2, prompt_len=12, max_gen=10, decode_slice=4,
+              temperature=0.8, seed=5, params=params, device=dev)
+    eng = LMEngine(cfg, **kw)
+    tickets = [eng.submit(p) for p in prompts]
+    eng.run()
+    served = np.stack([t.result(5.0) for t in tickets])
+    assert eng.decode_graph.graph is not None
+    # the eager loop samples with a second engine's rule and generator
+    # (seeded alike), in the engine's order: the prefill, then each step
+    ref = LMEngine(cfg, **kw)
+    toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    with torch.no_grad():
+        state, logits = lm.prefill(cfg, params, {"tokens": toks}, 22)
+        tok = ref._sample(logits)[:, None]
+        out = [tok]
+        for i in range(9):
+            logits, state = lm.decode_step(cfg, params, state, tok, 12 + i)
+            tok = ref._sample(torch.nan_to_num(logits))[:, None]
+            out.append(tok)
+    np.testing.assert_array_equal(served, torch.cat(out, 1).cpu().numpy())
+
+
+def test_step_graph_refuses_on_the_card(cuda):
+    """Last in the file: a failed capture may leave its side stream's
+    allocator state behind."""
+    a = torch.arange(4.0, device=cuda)
+    graph = StepGraph(lambda h, c: h * c, clone_outputs=True)
+    assert torch.equal(graph(a, torch.ones(4, device=cuda)), a)
+    assert torch.equal(graph(a, torch.full((4,), 2.0, device=cuda)), 2 * a)
+    with pytest.raises(ValueError, match="not the tensor captured"):
+        graph(a.clone(), torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="copied leaf 0"):
+        graph(a, torch.ones(4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="copied leaf 0"):
+        graph(a, torch.ones(4))
+    # a host read of a device value cannot be captured: no eager fallback
+    bad = StepGraph(lambda h, c: h * float(c.sum()), clone_outputs=True)
+    with pytest.raises(RuntimeError):
+        bad(a, torch.ones(4, device=cuda))
+    assert bad.graph is None
