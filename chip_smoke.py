@@ -63,16 +63,24 @@ Phases (any failure exits non-zero, before the last line is printed):
    grid in fp32 and bf16 and the slice's shape (8, 64, 2048, 64), chunk
    64; ragged S through ``rwkv6_chunked``; chunk 16 against chunk 64.
    ``rwkv6_plain`` with the bonus term dropped and with the state read
-   one chunk late must exceed each limit 10x.  Then timed at the slice's
-   shape beside its bound and its plain version (no PyTorch call
-   computes the recurrence: no library yardstick);
+   one chunk late must exceed each limit 10x.  The model path's
+   ``rwkv6_chunked_fp32``, which reads (B,S,H,dh) views in place (bf16
+   r/k/v upcast on load, fp32 logw and out, the ragged last chunk
+   masked), at the slice's shape and at S = 2047, for bf16 and fp32
+   inputs: out and state within the fp32 limit of ``rwkv6_plain`` on the
+   upcast, padded copies (padding stripped), and BITWISE equal to
+   ``rwkv6_chunked`` on ``.float()`` copies (the same kernel on upcast,
+   padded, contiguous tensors).  Then both are timed at the slice's shape
+   beside their bounds and plain versions (fp32 on (B,H,S,dh); bf16 in
+   place, with the upcast/pad route it replaced; no PyTorch call computes
+   the recurrence: no library yardstick);
 9. RWKV6-7B serving at full width (32 layers, d 4096, 64 heads of dh 64,
    d_ff 14336, vocab 65536, bf16, random weights drawn on the card from
    seed 0), after TinyLlama's weights are freed: batch 8, prompt 2048
    (above the 256-token switch, so every layer's prefill runs the
    kernel), 64 greedy tokens, decode slices of 8, decode replayed; then
-   one traced prefill, one traced replayed decode slice and the eager loop
-   as for TinyLlama;
+   one traced prefill (with its count of kernels and of copy kernels), one
+   traced replayed decode slice and the eager loop as for TinyLlama;
 10. RWKV6 agreement: the chunked time-mix (the kernel) against the
    sequential scan at full width (fp32, batch 2 x 512), and the card
    against the port on the CPU (fp32, full width, 2 layers, batch 2,
@@ -264,9 +272,12 @@ def traced(label, fn, kernel, card, replayed=False):
     busy = busy_us(kernels) / 1e3
     summed = sum(k[1] for k in kernels) / 1e3
     kn = [k[1] for k in kernels if kernel in k[0]]
+    # copies: dtype casts, .contiguous(), padding (PyTorch's copy kernels)
+    copies = [k[1] for k in kernels if "copy" in k[0].lower()]
     res = dict(wall_ms=wall_ms, kernels=len(kernels),
                kernel_launches=len(kn), kernel_ms=sum(kn) / 1e3,
-               summed_ms=summed)
+               summed_ms=summed, copy_kernels=len(copies),
+               copy_ms=sum(copies) / 1e3)
     if not kernels:
         print(f"traced {label}: wall {wall_ms:.1f} ms; the profiler "
               "recorded no kernel in the window"
@@ -281,7 +292,10 @@ def traced(label, fn, kernel, card, replayed=False):
           f"ms (kernel durations summed {summed:.3f}), idle share "
           f"{1 - busy / wall_ms:.4f}; {len(kernels)} kernels; "
           f"{kernel} {len(kn)} launches, {sum(kn) / 1e3:.3f} ms = "
-          f"{sum(kn) / 1e3 / summed:.4f} of kernel time {card}", flush=True)
+          f"{sum(kn) / 1e3 / summed:.4f} of kernel time; copy kernels "
+          f"{len(copies)} = {len(copies) / len(kernels):.4f} of the kernels, "
+          f"{sum(copies) / 1e3:.3f} ms = {sum(copies) / 1e3 / summed:.4f} of "
+          f"kernel time {card}", flush=True)
     by_name = {}
     for n, us, _, _ in kernels:
         cnt, tot = by_name.get(n, (0, 0.0))
@@ -649,8 +663,15 @@ def flash_phase(card, dev):
               and torch.equal(o, oc.transpose(1, 2)),
               f"{dtype} flash_attention on (B,S,H,Dh) views differs from the "
               "contiguous call")
-        launched = [k[0] for k in
-                    device_kernels(lambda: flash_attention(qs, ks, vs))[0]]
+        # a session can keep its bracketing marks and lose the window's
+        # own record (torch.profiler on an H100 has done so): such an
+        # empty window is traced again; a window with any kernel but the
+        # flash kernel still fails
+        for _ in range(SESSIONS):
+            launched = [k[0] for k in
+                        device_kernels(lambda: flash_attention(qs, ks, vs))[0]]
+            if launched:
+                break
         check(len(launched) == 1 and "flash_fwd_kernel" in launched[0],
               f"flash_attention launched {launched}: copies on the card")
         print(f"  model layout {dtype}: flash_attention on (B,S,H,Dh) views "
@@ -1103,7 +1124,48 @@ def rwkv6_phase(card, dev):
                                            for k, m in margins.items()),
           flush=True)
 
-    # times at the slice's shape, fp32 (the model path's type), chunk 64:
+    # the model path's in-place read (rwkv6_chunked_fp32), at the slice's
+    # shape and a ragged S, bf16 and fp32 inputs: within RWKV6_TOL["float32"]
+    # of rwkv6_plain on the upcast, padded copies (padding stripped), and
+    # bitwise equal to the route it replaces, the kernel on those copies
+    b, h, s, dh = RWKV6_SLICE
+    inplace_err, inplace_ratio = 0.0, 0.0
+    for name, seq in itertools.product(("bfloat16", "float32"), (s, s - 1)):
+        a = rwkv6_bshd(b, seq, h, dh, getattr(torch, name), gen)
+        out, sfin = ops.rwkv6_chunked_fp32(*a, chunk=64)
+        torch.cuda.synchronize()
+        po, ps = rwkv6_plain(*(ops.bhsd_padded(t.float(), 64) for t in a[:4]),
+                             a[4], chunk=64)
+        po = po.transpose(1, 2)[:, :seq]
+        r_out = limit_ratio(out, po, *RWKV6_TOL["float32"])
+        r_st = limit_ratio(sfin, ps, *RWKV6_TOL["float32"])
+        err = max(max_abs(out, po), max_abs(sfin, ps))
+        check(out.dtype == torch.float32 and r_out <= 1 and r_st <= 1,
+              f"rwkv6_chunked_fp32 beyond its limit against rwkv6_plain at "
+              f"{name} {(b, seq, h, dh)}: ratio out {r_out:.3f}, state "
+              f"{r_st:.3f} of {RWKV6_TOL['float32']}, max|diff| {err:.3e}")
+        inplace_err = max(inplace_err, err)
+        inplace_ratio = max(inplace_ratio, r_out, r_st)
+        del po, ps
+        ro, rs = ops.rwkv6_chunked(*(t.float() for t in a[:4]), a[4],
+                                   chunk=64)
+        check(out.is_contiguous()
+              and torch.equal(bits(out), bits(ro))
+              and torch.equal(bits(sfin), bits(rs)),
+              f"rwkv6_chunked_fp32 differs from the padded fp32 route at "
+              f"{name} {(b, seq, h, dh)}: max|diff| out {max_abs(out, ro)}, "
+              f"state {max_abs(sfin, rs)}")
+        n_cases += 1
+        del a, out, sfin, ro, rs
+    print(f"  rwkv6_chunked_fp32 (model layout read in place), bf16 and fp32 "
+          f"inputs, (B, S, H, dh) = {(b, s, h, dh)} and S = {s - 1}: vs "
+          f"rwkv6_plain on the upcast, padded copies worst ratio to the limit "
+          f"{inplace_ratio:.4f} (limit {RWKV6_TOL['float32']}), max|diff| "
+          f"{inplace_err:.3e}; == the padded fp32 route (rwkv6_chunked on "
+          f".float() copies), out and state bitwise {card}", flush=True)
+
+    # times at the slice's shape, fp32 on (B,H,S,dh) (the JAX-parity entry),
+    # chunk 64:
     # device time (profiler kernel records) and call time (CUDA events)
     b, h, s, dh = RWKV6_SLICE
     c = 64
@@ -1137,9 +1199,51 @@ def rwkv6_phase(card, dev):
           f"cores' rate {row['ops_ms_bf16_tensor_cores']:.4f} ms)  library: "
           f"none {card}", flush=True)
     del a
+
+    # the in-place path as the model calls it: bf16 r/k/v, fp32 logw, u and
+    # out, (B,S,H,dh); its plain version is rwkv6_plain on the upcast,
+    # padded copies, and the route it replaced (upcast, pad, kernel, the
+    # output copied into (B,S,H*dh)) is timed beside it
+    a = rwkv6_bshd(b, s, h, dh, torch.bfloat16, gen)
+    ibytes = a[0].numel() * (3 * 2 + 4 + 4) + b * h * dh * dh * 4 \
+        + a[4].numel() * 4
+    ibytes_ms = ibytes / HBM_BYTES_PER_S * 1e3
+    kern = lambda: ops.rwkv6_chunked_fp32(*a, chunk=c)  # noqa: E731
+    plain = lambda: rwkv6_plain(*(ops.bhsd_padded(t.float(), c)  # noqa: E731
+                                  for t in a[:4]), a[4], chunk=c)
+    route = lambda: ops.rwkv6_chunked(  # noqa: E731
+        *(t.float() for t in a[:4]), a[4], chunk=c)[0].reshape(b, s, h * dh)
+    inplace = dict(shape=[b, s, h, dh], chunk=c, dtype="bfloat16 r/k/v, "
+                   "float32 logw/u/out", flops=flops, bytes=ibytes,
+                   bound_ms=max(ops_ms, ibytes_ms),
+                   bound_by="operations" if ops_ms >= ibytes_ms else "bytes",
+                   ops_ms_fp32=ops_ms, bytes_ms=ibytes_ms,
+                   call_ms=time_ms(kern, 20, 3),
+                   route_call_ms=time_ms(route, 20, 3),
+                   plain_call_ms=time_ms(plain, 5, 1),
+                   max_abs_err=inplace_err, limit_ratio=inplace_ratio)
+    inplace["ms"] = device_ms(kern, iters=10)
+    inplace["route_ms"] = device_ms(route, iters=10)
+    inplace["plain_ms"] = device_ms(plain, iters=3)
+    print(f"  rwkv6_chunked_fp32 {(b, s, h, dh)} chunk {c}, bf16 r/k/v: "
+          f"kernel {inplace['ms']:.4f} ms (call {inplace['call_ms']:.4f})  "
+          f"the upcast/pad route it replaced {inplace['route_ms']:.4f} ms "
+          f"(call {inplace['route_call_ms']:.4f})  plain "
+          f"{inplace['plain_ms']:.4f} ms  bound {inplace['bound_ms']:.4f} ms "
+          f"({inplace['bound_by']}: {ops_ms:.4f} ms; {ibytes} B at 3.35 "
+          f"TB/s = {ibytes_ms:.4f} ms)  library: none {card}", flush=True)
+    del a
     torch.cuda.empty_cache()
     return dict(worst=worst, ratios=ratios, margins=margins, row=row,
-                cases=n_cases)
+                inplace=inplace, cases=n_cases)
+
+
+def rwkv6_bshd(b, s, h, dh, dtype, gen):
+    """The model path's operands: r/k/v (B,S,H,dh) in ``dtype``, logw and u
+    fp32, drawn as ``rwkv6_inputs`` draws them."""
+    from repro_torch.kernels.rwkv6_cases import rwkv6_inputs
+    r, k, v, logw, u = rwkv6_inputs(b, h, s, dh, gen, layout="bshd")
+    return [t.to(dtype) for t in (r, k, v)] + [logw, u]
 
 
 def rwkv_agreement_phase(card, dev):
@@ -1516,9 +1620,36 @@ def main():
                   "traces": lm_res["traces"]},
         "card": smi,
     }, {
+        "name": "rwkv6_chunked_fp32",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cuh",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:75",
+        "launches": rw_res["launches"],
+        "expected_launches": rw_res["expected"],
+        "max_abs_err": rw["inplace"]["max_abs_err"],
+        "limit_ratio_vs_plain": rw["inplace"]["limit_ratio"],
+        "bitwise_vs_padded_fp32_route": True,
+        "ms": rw["inplace"]["ms"],
+        "kernel_ms": rw["inplace"]["ms"],
+        "call_ms": rw["inplace"]["call_ms"],
+        "plain_ms": rw["inplace"]["plain_ms"],
+        "plain_call_ms": rw["inplace"]["plain_call_ms"],
+        "route_ms": rw["inplace"]["route_ms"],
+        "route_call_ms": rw["inplace"]["route_call_ms"],
+        "bound_ms": rw["inplace"]["bound_ms"],
+        "bound_by": rw["inplace"]["bound_by"],
+        "bound_parts_ms": {k: rw["inplace"][k] for k in
+                           ("ops_ms_fp32", "bytes_ms")},
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the RWKV6 "
+                   "recurrence",
+        "timed_case": {k: rw["inplace"][k] for k in
+                       ("shape", "chunk", "dtype", "flops", "bytes")},
+        "card": smi,
+    }, {
         "name": "rwkv6_chunked",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cuh",
         "replaces": "src/repro/kernels/rwkv6_scan.py:75",
         "launches": rw_res["launches"],
         "expected_launches": rw_res["expected"],

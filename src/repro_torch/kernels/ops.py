@@ -4,9 +4,10 @@
 is the forward online-softmax attention of the LM prefill
 (``csrc/flash_attention.cu``).
 
-``rwkv6_chunked_bhsd`` (and its model-layout front ``rwkv6_chunked``) is
-the chunked RWKV6 recurrence of the RWKV6 prefill
-(``csrc/rwkv6_scan.cu``).
+``rwkv6_chunked_bhsd`` (and its model-layout front ``rwkv6_chunked``, both
+in r's dtype, as the JAX package's) and ``rwkv6_chunked_fp32`` (the RWKV6
+prefill's: the model's (B,S,H,dh) projections read in place, fp32 out)
+are the chunked RWKV6 recurrence (``csrc/rwkv6_scan.cuh``), one kernel.
 
 ``fused_lincomb`` is the RK stage-update / stage-adjoint primitive:
 
@@ -39,7 +40,8 @@ plain_calls = 0
 flash_launches = 0
 #: calls that ``flash_attention_bhsd`` served with ``attention_plain`` (CPU)
 flash_plain_calls = 0
-#: kernel launches made by ``rwkv6_chunked_bhsd`` (CUDA tensors)
+#: RWKV6 kernel launches, by ``rwkv6_chunked_bhsd`` and
+#: ``rwkv6_chunked_fp32`` (CUDA tensors)
 rwkv6_launches = 0
 #: calls that ``rwkv6_chunked_bhsd`` served with ``rwkv6_plain`` (CPU)
 rwkv6_plain_calls = 0
@@ -349,57 +351,134 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 #: head dims and chunk lengths the kernel is instantiated for
 RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 RWKV6_CHUNKS = (16, 32, 64)
-_RWKV6_FN = {torch.float32: "repro_rwkv6_chunked_f32",
-             torch.bfloat16: "repro_rwkv6_chunked_bf16"}
+#: (r/k/v dtype, logw/u/out dtype) -> (source, C entry) of the kernel's
+#: instantiation for it
+_RWKV6_FN = {(torch.float32, torch.float32):
+             ("rwkv6_scan", "repro_rwkv6_chunked_f32"),
+             (torch.bfloat16, torch.bfloat16):
+             ("rwkv6_scan_bf16", "repro_rwkv6_chunked_bf16"),
+             (torch.bfloat16, torch.float32):
+             ("rwkv6_scan_bf16_f32", "repro_rwkv6_chunked_bf16_f32")}
+#: the kernel copies r, k, v and logw into shared memory 16 bytes at a time
+#: (cp.async): 16-byte bases and batch, sequence and head strides
+CP_ASYNC_ALIGN = 16
 
 
 class Rwkv6Args(ctypes.Structure):
     _fields_ = [("r", ctypes.c_void_p), ("k", ctypes.c_void_p),
                 ("v", ctypes.c_void_p), ("logw", ctypes.c_void_p),
                 ("u", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("state", ctypes.c_void_p), ("b", ctypes.c_int),
-                ("h", ctypes.c_int), ("s", ctypes.c_int)]
+                ("state", ctypes.c_void_p),
+                ("r_stride", ctypes.c_longlong * 3),
+                ("k_stride", ctypes.c_longlong * 3),
+                ("v_stride", ctypes.c_longlong * 3),
+                ("w_stride", ctypes.c_longlong * 3),
+                ("o_stride", ctypes.c_longlong * 3),
+                ("b", ctypes.c_int), ("h", ctypes.c_int), ("s", ctypes.c_int)]
 
 
-def _rwkv6_kernel(dtype):
-    fn = _bound.get(("rwkv6", dtype))
+def _rwkv6_kernel(dtypes):
+    fn = _bound.get(("rwkv6", dtypes))
     if fn is None:
         from repro_torch.kernels import _build  # builds on first launch
-        fn = getattr(_build.load("rwkv6_scan"), _RWKV6_FN[dtype])
+        stem, name = _RWKV6_FN[dtypes]
+        fn = getattr(_build.load(stem), name)
         fn.argtypes = [Rwkv6Args, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bound[("rwkv6", dtype)] = fn
+        _bound[("rwkv6", dtypes)] = fn
     return fn
 
 
-def _check_rwkv6(r, k, v, logw, u, chunk):
+def _check_rwkv6_operands(name, layout, r, k, v, logw, u, w_dtype):
+    """The rules both RWKV6 entries share: r, k, v and logw of one 4-D
+    shape, whose dims ``layout`` names ("B,H,S,dh" or "B,S,H,dh"), u (H,dh),
+    r/k/v fp32 or bf16, logw and u of ``w_dtype`` (None: r's dtype), one
+    device, and no autograd."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(
-            "rwkv6_chunked_bhsd: r, k, v and logw must all be (B,H,S,dh); got "
+            f"{name}: r, k, v and logw must all be ({layout}); got "
             f"{tuple(r.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
             f"{tuple(logw.shape)}")
-    b, h, s, dh = r.shape
-    if u.shape != (h, dh):
-        raise ValueError(f"rwkv6_chunked_bhsd: u must be (H,dh) = {(h, dh)}, "
-                         f"got {tuple(u.shape)}")
-    if r.dtype not in _RWKV6_FN or any(t.dtype != r.dtype
-                                       for t in (k, v, logw, u)):
-        raise TypeError("rwkv6_chunked_bhsd: r, k, v, logw and u must share "
-                        "one dtype, fp32 or bf16; got "
+    hd = (r.shape[layout.split(",").index("H")], r.shape[3])
+    if u.shape != hd:
+        raise ValueError(f"{name}: u must be (H,dh) = {hd}, got "
+                         f"{tuple(u.shape)}")
+    want = r.dtype if w_dtype is None else w_dtype
+    if (r.dtype not in (torch.float32, torch.bfloat16)
+            or k.dtype != r.dtype or v.dtype != r.dtype
+            or logw.dtype != want or u.dtype != want):
+        rule = ("r, k, v, logw and u must share one dtype, fp32 or bf16"
+                if w_dtype is None else
+                "r, k and v of one dtype (fp32 or bf16), logw and u fp32")
+        raise TypeError(f"{name}: {rule}; got "
                         f"{[str(t.dtype) for t in (r, k, v, logw, u)]}")
     if any(t.device != r.device for t in (k, v, logw, u)):
-        raise ValueError("rwkv6_chunked_bhsd: operands on different devices: "
+        raise ValueError(f"{name}: operands on different devices: "
                          f"{[str(t.device) for t in (r, k, v, logw, u)]}")
-    if not all(t.is_contiguous() for t in (r, k, v, logw, u)):
-        raise ValueError("rwkv6_chunked_bhsd: operands must be contiguous")
-    if chunk <= 0 or s % chunk:
-        raise ValueError(f"rwkv6_chunked_bhsd: S={s} is not a multiple of "
-                         f"the chunk {chunk} (rwkv6_chunked pads)")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, logw, u)):
         raise RuntimeError(
-            "rwkv6_chunked_bhsd has no autograd rule (the TPU kernel has no "
-            "backward either); call it under torch.no_grad()")
+            f"{name} has no autograd rule (the TPU kernel has no backward "
+            "either); call it under torch.no_grad()")
+
+
+def _check_rwkv6(r, k, v, logw, u, chunk):
+    name = "rwkv6_chunked_bhsd"
+    _check_rwkv6_operands(name, "B,H,S,dh", r, k, v, logw, u, None)
+    if not all(t.is_contiguous() for t in (r, k, v, logw, u)):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if chunk <= 0 or r.shape[2] % chunk:
+        raise ValueError(f"{name}: S={r.shape[2]} is not a multiple of "
+                         f"the chunk {chunk} (rwkv6_chunked pads)")
+
+
+def _check_cp_async(name, **tensors):
+    """r, k, v and logw (indexed (B,S,H,dh)) reach shared memory through
+    16-byte copies: a 16-byte base and batch, sequence and head strides
+    that are multiples of 16 bytes (a dim of extent 1 is never stepped,
+    so its stride is free)."""
+    for what, t in tensors.items():
+        size = t.element_size()
+        bad = [st for st, n in zip(t.stride()[:3], t.shape[:3])
+               if n > 1 and st * size % CP_ASYNC_ALIGN]
+        if t.data_ptr() % CP_ASYNC_ALIGN or bad:
+            raise ValueError(
+                f"{name}: {what} needs a {CP_ASYNC_ALIGN}-byte aligned base "
+                f"and batch/sequence/head strides of {CP_ASYNC_ALIGN}-byte "
+                f"multiples (the kernel's cp.async copies); got pointer % "
+                f"{CP_ASYNC_ALIGN} = {t.data_ptr() % CP_ASYNC_ALIGN}, strides "
+                f"{t.stride()} of {size}-byte elements")
+
+
+def _rwkv6_launch(name, r, k, v, logw, u, out, chunk):
+    """The counted launch behind the wrappers: r, k, v, logw and ``out``
+    indexed (B,S,H,dh) with any strides whose dh has stride 1 (r/k/v/logw:
+    16-byte multiples), u (H,dh).  Returns (out, fp32 state (B,H,dh,dh))."""
+    global rwkv6_launches
+    b, s, h, dh = r.shape
+    if dh not in RWKV6_HEAD_DIMS or chunk not in RWKV6_CHUNKS:
+        raise ValueError(f"{name}: head dim {dh} / chunk {chunk} not in "
+                         f"{RWKV6_HEAD_DIMS} / {RWKV6_CHUNKS}")
+    if b * h == 0 or s == 0:
+        raise ValueError(f"{name}: empty batch, heads or sequence")
+    _check_cp_async(name, r=r, k=k, v=v, logw=logw)
+    u = u.contiguous()
+    state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
+
+    def strides(t):
+        return (t.stride(0), t.stride(1), t.stride(2))
+
+    args = Rwkv6Args(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                     state.data_ptr(), strides(r), strides(k), strides(v),
+                     strides(logw), strides(out), b, h, s)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _rwkv6_kernel((r.dtype, logw.dtype))(args, dh, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    rwkv6_launches += 1
+    return out, state
 
 
 def rwkv6_chunked_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -408,10 +487,10 @@ def rwkv6_chunked_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked RWKV6 recurrence from a zero state.  r/k/v/logw: (B,H,S,dh)
     with S a multiple of ``chunk``, u: (H,dh), all contiguous and of one
     dtype (fp32 or bf16).  Returns (out (B,H,S,dh) in r's dtype, final
-    state (B,H,dh,dh) fp32).  A CUDA tensor launches ``csrc/rwkv6_scan.cu``
-    (dh in ``RWKV6_HEAD_DIMS``, chunk in ``RWKV6_CHUNKS``) or raises; only a
-    CPU tensor takes ``rwkv6_plain``."""
-    global rwkv6_launches, rwkv6_plain_calls
+    state (B,H,dh,dh) fp32).  A CUDA tensor launches ``csrc/rwkv6_scan.cuh``
+    (dh in ``RWKV6_HEAD_DIMS``, chunk in ``RWKV6_CHUNKS``, 16-byte aligned
+    bases) or raises; only a CPU tensor takes ``rwkv6_plain``."""
+    global rwkv6_plain_calls
     chunk = int(chunk)
     _check_rwkv6(r, k, v, logw, u, chunk)
     if r.device.type == "cpu":
@@ -419,24 +498,10 @@ def rwkv6_chunked_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return rwkv6_plain(r, k, v, logw, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_chunked_bhsd: unsupported device {r.device}")
-    b, h, s, dh = r.shape
-    if dh not in RWKV6_HEAD_DIMS or chunk not in RWKV6_CHUNKS:
-        raise ValueError(f"rwkv6_chunked_bhsd: head dim {dh} / chunk {chunk} "
-                         f"not in {RWKV6_HEAD_DIMS} / {RWKV6_CHUNKS}")
-    if b * h == 0 or s == 0:
-        raise ValueError("rwkv6_chunked_bhsd: empty batch, heads or sequence")
     out = torch.empty_like(r)
-    state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
-    args = Rwkv6Args(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     logw.data_ptr(), u.data_ptr(), out.data_ptr(),
-                     state.data_ptr(), b, h, s)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = _rwkv6_kernel(r.dtype)(args, dh, chunk, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"rwkv6_chunked_bhsd: CUDA launch failed with error {err}")
-    rwkv6_launches += 1
+    _, state = _rwkv6_launch("rwkv6_chunked_bhsd",
+                             *(t.transpose(1, 2) for t in (r, k, v, logw)),
+                             u, out.transpose(1, 2), chunk)
     return out, state
 
 
@@ -453,9 +518,47 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 64):
     """Model layout: r/k/v/logw (B,S,H,dh), u (H,dh) -> (out (B,S,H,dh),
     final state (B,H,dk,dv)), as the JAX package's ``ops.rwkv6_chunked``:
     S is zero-padded to a multiple of ``chunk`` and the padding stripped
-    from the output, which is a (B,S,H,dh) view of the kernel's."""
+    from the output, which is a (B,S,H,dh) view of the kernel's, in r's
+    dtype."""
     s = r.shape[1]
     out, state = rwkv6_chunked_bhsd(*(bhsd_padded(t, chunk)
                                       for t in (r, k, v, logw)),
                                     u.contiguous(), chunk=chunk)
     return out.transpose(1, 2)[:, :s], state
+
+
+def _check_rwkv6_fp32(r, k, v, logw, u, chunk):
+    name = "rwkv6_chunked_fp32"
+    _check_rwkv6_operands(name, "B,S,H,dh", r, k, v, logw, u, torch.float32)
+    if any(t.stride(-1) != 1 for t in (r, k, v, logw, u)):
+        raise ValueError(f"{name}: the innermost (dh) stride of every "
+                         "operand must be 1; got strides "
+                         f"{[t.stride() for t in (r, k, v, logw, u)]}")
+    if chunk <= 0:
+        raise ValueError(f"{name}: chunk {chunk} must be positive")
+
+
+def rwkv6_chunked_fp32(r, k, v, logw, u, *, chunk: int = 64):
+    """The model path's RWKV6 recurrence (``nn/ssm.py::rwkv6_mix_chunked``),
+    reading the projections where they lie: r/k/v (B,S,H,dh) fp32 or bf16
+    (one dtype), logw (B,S,H,dh) fp32, u (H,dh) fp32, any S; each with a
+    unit dh stride.  Returns (out (B,S,H,dh) fp32, contiguous, final state
+    (B,H,dh,dh) fp32), bit for bit
+
+        rwkv6_chunked(*(t.float() for t in (r, k, v, logw)), u, chunk=chunk)
+
+    which is what a CPU tensor takes.  A CUDA tensor launches
+    ``csrc/rwkv6_scan.cuh`` on the views in place (bf16 upcast on load, the
+    ragged last chunk masked, out written in (B,S,H,dh)) or raises.  (The
+    name says what differs from ``rwkv6_chunked``: the output is fp32
+    whatever r's dtype, as the JAX model path computes it.)"""
+    chunk = int(chunk)
+    _check_rwkv6_fp32(r, k, v, logw, u, chunk)
+    if r.device.type == "cpu":
+        out, state = rwkv6_chunked(*(t.float() for t in (r, k, v, logw)),
+                                   u, chunk=chunk)
+        return out.contiguous(), state
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_chunked_fp32: unsupported device {r.device}")
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    return _rwkv6_launch("rwkv6_chunked_fp32", r, k, v, logw, u, out, chunk)

@@ -16,12 +16,17 @@ Routing.  The JAX package's chunked form is its own jnp ``chunk_step``
 scan; the port puts the Hopper kernel that replaces the TPU kernel
 ``rwkv6_chunked_bhsd`` in its place, which computes the same function:
 
-- ``rwkv6_mix_chunked`` with ``state=None`` casts r, k, v and logw to fp32
-  (as the JAX ``resh`` does) and calls ``kernels.ops.rwkv6_chunked`` with
-  ``c = min(chunk, S)``: the kernel for CUDA tensors, ``rwkv6_plain`` for
-  CPU tensors.  Both are the JAX ``chunk_step`` scan from a zero state:
-  the same c, the same zero padding of r, k, v and logw, the same
-  ``mid = cum[c // 2]``.
+- ``rwkv6_mix_chunked`` with ``state=None`` calls
+  ``kernels.ops.rwkv6_chunked_fp32`` with ``c = min(chunk, S)`` on the
+  projections as they come: r, k and v in x's dtype, logw fp32, all
+  (B,S,H,dh) views, and gets fp32 (B,S,H,dh) back.  For CUDA tensors the
+  kernel reads them in place (bf16 upcast on load, as the JAX ``resh``
+  casts to fp32; the ragged last chunk masked); for CPU tensors it is
+  ``rwkv6_plain`` on upcast, zero-padded (B,H,S',dh) copies.  Both are
+  the JAX ``chunk_step`` scan from a zero state: the same c, the same zero
+  padding, the same ``mid = cum[c // 2]``.  On the card, the in-place
+  read gives bit for bit what the kernel gives on the upcast, padded
+  copies.
 - Given a ``state`` it runs ``rwkv6_plain`` from that state on the CPU and
   raises on the card: the kernel starts from a zero state, as the TPU
   kernel does.  No caller in the JAX package passes one.
@@ -153,11 +158,10 @@ def rwkv6_mix_chunked(params, x: torch.Tensor, n_heads: int,
     r, k, v, g, logw = rwkv6_projections(params, x, n_heads)
     u = params["u_bonus"]
     c = min(chunk, s)
-    r, k, v, logw = (t.float() for t in (r, k, v, logw))
     if state is None:
-        y, state = ops.rwkv6_chunked(r, k, v, logw, u, chunk=c)
+        y, state = ops.rwkv6_chunked_fp32(r, k, v, logw, u, chunk=c)
     elif x.device.type == "cpu":
-        y, state = rwkv6_plain(*(ops.bhsd_padded(t, c)
+        y, state = rwkv6_plain(*(ops.bhsd_padded(t.float(), c)
                                  for t in (r, k, v, logw)),
                                u, chunk=c, state=state)
         y = y.transpose(1, 2)[:, :s]

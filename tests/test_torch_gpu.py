@@ -10,7 +10,10 @@ count on an LM prefill, and the kernel's prefill against the naive one;
 ``rwkv6_chunked_bhsd`` against ``rwkv6_plain`` (the limits of
 ``repro_torch.kernels.rwkv6_cases``) and against the
 sequential ``rwkv6_ref`` at the JAX package's limits, its refusals, and
-its launch count on an RWKV6 prefill; and CUDA-graph replay
+its launch count on an RWKV6 prefill; the model path's in-place
+``rwkv6_chunked_fp32`` bitwise equal to the kernel on upcast, padded
+copies (ragged S, strided views, under ``rwkv6_mix_chunked``); and
+CUDA-graph replay
 (``repro_torch.launch.graphs.StepGraph``) bitwise equal to eager PyTorch:
 decode of both LM families, the fixed-step gradient under every adjoint
 policy, the CNF request, ``LMEngine`` sampling at temperature > 0, and
@@ -386,6 +389,103 @@ def test_rwkv6_refuses_on_the_card(cuda):
     state = torch.zeros(1, 4, 16, 16, device=cuda)
     with pytest.raises(NotImplementedError, match="zero state"):
         ssm.rwkv6_mix_chunked(params, x, 4, state)
+
+
+INPLACE_S = [1, 31, 63, 64, 65, 127, 300, 2047]
+
+
+def _bshd_inputs(b, s, h, dh, dtype, device, seed=0, sliced=False):
+    """The kernel-test inputs in the model's (B,S,H,dh) layout, from a numpy
+    seed: r/k/v in ``dtype``, logw and u fp32; with ``sliced``, views cut
+    out of larger tensors (batch, sequence and head strides of their own,
+    a base past the tensor's start)."""
+    big = (b + 1, s + 5, h + 2) if sliced else (b, s, h)
+    r, k, v, logw, u = (t.to(device) for t in rwkv6_inputs(
+        big[0], big[2], big[1], dh, np.random.RandomState(seed),
+        layout="bshd"))
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    if sliced:
+        r, k, v, logw = (t[1:, 3:3 + s, 2:2 + h] for t in (r, k, v, logw))
+        u = u[2:2 + h]
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,chunk", [(64, 64), (32, 16), (128, 32)])
+@pytest.mark.parametrize("s", INPLACE_S)
+def test_rwkv6_inplace_bitwise_equals_the_padded_composition(cuda, dtype, dh,
+                                                             chunk, s):
+    """The model path's in-place read against what it replaces: the same
+    kernel on upcast, zero-padded, contiguous (B,H,S',dh) copies."""
+    a = _bshd_inputs(2, s, 3, dh, dtype, cuda, seed=s)
+    ops.reset_counts()
+    out, state = ops.rwkv6_chunked_fp32(*a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ops.rwkv6_launches, ops.rwkv6_plain_calls) == (1, 0)
+    assert out.dtype == torch.float32 and out.shape == a[0].shape
+    assert out.is_contiguous()
+    ref_out, ref_state = ops.rwkv6_chunked(*(t.float() for t in a[:4]), a[4],
+                                           chunk=chunk)
+    assert torch.equal(_bits(out), _bits(ref_out))
+    assert torch.equal(_bits(state), _bits(ref_state))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 300])
+def test_rwkv6_inplace_reads_strided_views_bitwise(cuda, dtype, s):
+    a = _bshd_inputs(2, s, 3, 64, dtype, cuda, seed=s, sliced=True)
+    assert not a[0].is_contiguous() and a[0].data_ptr() != \
+        a[0]._base.data_ptr()
+    out, state = ops.rwkv6_chunked_fp32(*a, chunk=64)
+    dense_out, dense_state = ops.rwkv6_chunked_fp32(
+        *(t.contiguous() for t in a), chunk=64)
+    ref_out, ref_state = ops.rwkv6_chunked(*(t.float() for t in a[:4]), a[4],
+                                           chunk=64)
+    for o, st in ((dense_out, dense_state), (ref_out, ref_state)):
+        assert torch.equal(_bits(out), _bits(o))
+        assert torch.equal(_bits(state), _bits(st))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_mix_chunked_equals_the_upcast_route_bitwise(cuda, dtype):
+    """``rwkv6_mix_chunked`` reads the projections in place; the route it
+    replaced upcast them with ``.float()`` and called ``rwkv6_chunked``.
+    Same weights, same bits, one launch each."""
+    d, heads, s = 256, 4, 300
+    params = ssm.init_rwkv6(torch.Generator().manual_seed(0), d, heads,
+                            dtype, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, s, d).astype(
+        np.float32)).to(cuda, dtype)
+    ops.reset_counts()
+    with torch.no_grad():
+        y, state = ssm.rwkv6_mix_chunked(params, x, heads)
+        r, k, v, g, logw = ssm.rwkv6_projections(params, x, heads)
+        yo, so = ops.rwkv6_chunked(*(t.float() for t in (r, k, v, logw)),
+                                   params["u_bonus"], chunk=64)
+        y_old = ssm._rwkv_out(params, yo, g, dtype, 2, s, d)
+    assert (ops.rwkv6_launches, ops.rwkv6_plain_calls) == (2, 0)
+    assert y.dtype == dtype and torch.equal(_bits(y), _bits(y_old))
+    assert torch.equal(_bits(state), _bits(so))
+
+
+def test_rwkv6_inplace_refuses_on_the_card(cuda):
+    a = _bshd_inputs(1, 64, 2, 64, torch.bfloat16, cuda)
+    flat = torch.zeros(2 * 64 * 2 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:1 + a[0].numel()].view(a[0].shape)   # 2-byte base
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        ops.rwkv6_chunked_fp32(shifted, *a[1:], chunk=64)
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        ops.rwkv6_chunked_bhsd(*(flat[1:1 + a[0].numel()].view(1, 2, 64, 64)
+                                 for _ in range(4)), a[4].bfloat16(), chunk=64)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_chunked_fp32(*_bshd_inputs(1, 64, 2, 48, torch.bfloat16,
+                                             cuda), chunk=64)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.rwkv6_chunked_fp32(*a, chunk=8)
+    with pytest.raises(TypeError, match="logw and u fp32"):
+        ops.rwkv6_chunked_fp32(*a[:3], a[3].bfloat16(), a[4], chunk=64)
+    with pytest.raises(ValueError, match="devices"):
+        ops.rwkv6_chunked_fp32(*a[:4], a[4].cpu(), chunk=64)
 
 
 def _rwkv6_lm_case(device):

@@ -283,6 +283,20 @@ def test_rwkv6_mix_chunked_matches_jax_through_the_wrapper():
     _normwise(ts, js, CHUNKED_TOL)
 
 
+@pytest.mark.parametrize("s", [65, 130, 257])
+def test_rwkv6_mix_chunked_matches_jax_at_ragged_lengths(s):
+    """Through ``ops.rwkv6_chunked_fp32`` (the projections as they come, fp32
+    out): a ragged last chunk of 1, 2 and 1 positions at c = 64."""
+    jp, tp = _tmix(seed=5)
+    x = _x(2, s, seed=s)
+    ops.reset_counts()
+    jy, js = jssm.rwkv6_mix_chunked(jp, jnp.asarray(x), HEADS)
+    ty, ts = ssm.rwkv6_mix_chunked(tp, torch.from_numpy(x), HEADS)
+    assert (ops.rwkv6_plain_calls, ops.rwkv6_launches) == (1, 0)
+    _normwise(ty, jy, CHUNKED_TOL)
+    _normwise(ts, js, CHUNKED_TOL)
+
+
 def test_rwkv6_mix_chunked_from_a_state_runs_on_the_cpu():
     jp, tp = _tmix(seed=2)
     x = _x(2, 100, seed=4)
