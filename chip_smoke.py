@@ -85,19 +85,46 @@ Phases (any failure exits non-zero, before the last line is printed):
    sequential scan at full width (fp32, batch 2 x 512), and the card
    against the port on the CPU (fp32, full width, 2 layers, batch 2,
    prompt 300, every layer's state and 8 teacher-forced decode steps);
-11. one JSON line with each kernel's launches on its main path (which
-   must equal ``expected_lincomb_calls`` / ``expected_flash_calls`` /
-   ``expected_rwkv6_calls``), its error against the plain version and its
-   times; then the nvidia-smi line; then the result line.
+12. adaptive CNF at POWER width (phase 3's weights) through
+   ``repro_torch.core.cnf.AdaptiveCNF``: Dopri5 from t = 0 to 1 at
+   rtol = atol = 1e-6 with at most 512 steps (the JAX ``ODEEngine``'s
+   adaptive settings), the density and the score, ``fused_lincomb`` in
+   its scaled form (h a 0-d tensor on the card).  First the engine's
+   request, one point a solve with its own steps: an eager fused request
+   (counted: its launches must equal ``expected_adaptive_lincomb_calls``),
+   then one captured solver (one CUDA graph an attempt, with and without
+   the ring write, one an adjoint step; the host reads the loop's
+   ``live`` flag every 4 attempts) serving a stream of 16 points,
+   BITWISE equal to eager on the first, one of them against the port on
+   the CPU, the per-request and aggregate times and one traced request.
+   Then the 10,000 points as ONE state (one step sequence for the batch,
+   which the engine does not serve): eager fused (counted), eager unfused
+   and captured, with the same steps and BITWISE equal results; the
+   ring's bytes against the peak; the card against the port on the CPU
+   on 256 points; the times.  Last the scaled form timed at the leaves
+   of both;
+13. the stiff Robertson example (paper §5.3) through
+   ``repro_torch.examples.stiff_robertson.run``, fp64: the beuler truth
+   and 3 CN and 3 Dopri5 training epochs of ``mlp_vf`` from seed 0;
+   every CN solve converged, the pnode, revolve and revolve2 CN
+   gradients BITWISE equal on the card, and epoch 0's loss and gradient
+   against the port's CPU run of the same seed;
+11. last: one JSON line with each kernel's launches on its main path
+   (which must equal ``expected_lincomb_calls`` +
+   ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
+   ``expected_rwkv6_calls``), its error against the plain version and
+   its times; then the nvidia-smi line; then the result line.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 3-4 for ``fused_lincomb``, phase 6 for the flash kernel, phase 9
-for the RWKV6 kernel) and read just after; comparisons made outside those
-windows are not counted.  The counters count where the host launches,
+(phases 3-4 and each of phase 12's two eager fused runs for
+``fused_lincomb``, phase 6 for the flash
+kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
+made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
 come from the eager runs; the traced replays count the kernels the
 device ran.  TF32 is off wherever the card is compared with the CPU;
-phases 3-4 and their captured runs use deterministic algorithms.
+phases 3-4, their captured runs and phase 12 use deterministic
+algorithms.
 """
 import os
 
@@ -1310,6 +1337,456 @@ def rwkv_agreement_phase(card, dev):
           f"{LM_CPU_REL_TOL}) {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the adaptive CNF request at POWER width
+# ---------------------------------------------------------------------------
+
+# the JAX package's adaptive ODEEngine settings (rtol = atol = 1e-6, 512
+# steps, t in [0, 1]); the engine serves one point a solve
+ADAPTIVE = dict(t0=0.0, t1=1.0, rtol=1e-6, atol=1e-6, max_steps=512)
+ADAPTIVE_STREAM = 16       # one-point requests served by the captured solver
+ADAPTIVE_CPU_POINTS = 1    # of them, held against the port on the CPU
+ADAPTIVE_REPLAYS = 3       # captured batched requests timed (median)
+ADAPTIVE_TERMS = 5         # dopri5's widest stage update and its combine
+# the leaves fused_lincomb takes on phase 12: a point (6,) and its
+# log-density (), and the batched state (10000, 6) and (10000,)
+ADAPTIVE_SHAPES = [(6,), (), (10000, 6), (10000,)]
+
+
+def adaptive_request(cnf, theta, x):
+    """(density, score, AdaptiveInfo): a forward-only log-density and the
+    score d log p / dx through the reverse sweep, as the JAX engine's two
+    adaptive request kinds."""
+    import torch
+    with torch.no_grad():
+        density, info = cnf.log_prob(x, theta)
+    xg = x.detach().clone().requires_grad_(True)
+    lp, info_g = cnf.log_prob(xg, theta)
+    (score,) = torch.autograd.grad(lp.sum(), xg)
+    check(info == info_g, f"density and score took other steps: {info} vs "
+          f"{info_g}")
+    return density, score, info
+
+
+def timed_request(cnf, theta, x):
+    """``adaptive_request`` and its wall ms, the card synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = adaptive_request(cnf, theta, x)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_request(a, b):
+    """Same steps and the same bits of density and score."""
+    import torch
+    return a[2] == b[2] and all(torch.equal(bits(u), bits(v))
+                                for u, v in zip(a[:2], b[:2]))
+
+
+def lincomb_scaled_rows(card, dev):
+    """``fused_lincomb``'s scaled form (h a 0-d fp32 tensor on the card)
+    at the adaptive path's leaves, timed beside its bytes bound and its
+    plain version."""
+    import torch
+    from repro_torch.kernels.ops import fused_lincomb
+    from repro_torch.kernels.ref import lincomb_plain
+
+    gen = torch.Generator().manual_seed(12)
+    rows = []
+    for shape in ADAPTIVE_SHAPES:
+        base, terms = operands(shape, torch.float32, ADAPTIVE_TERMS, gen, dev)
+        h = torch.tensor(0.0123, dtype=torch.float32).to(dev)
+        ws = WEIGHTS[:ADAPTIVE_TERMS]
+        out = fused_lincomb(base, terms, ws, h)
+        check(torch.equal(bits(out), bits(lincomb_plain(base, terms, ws, h))),
+              f"scaled fused_lincomb != lincomb_plain at {shape}")
+        fused = lambda: fused_lincomb(base, terms, ws, h)  # noqa: E731
+        plain = lambda: lincomb_plain(base, terms, ws, h)  # noqa: E731
+        nbytes = (ADAPTIVE_TERMS + 2) * base.numel() * base.element_size()
+        row = dict(shape=list(shape), n_terms=ADAPTIVE_TERMS, form="scaled",
+                   dtype="float32", bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   call_ms=time_ms(fused), plain_call_ms=time_ms(plain))
+        row["ms"], row["plain_ms"] = device_ms(fused), device_ms(plain)
+        rows.append(row)
+        print(f"  lincomb scaled {str(shape):12s} terms={ADAPTIVE_TERMS} "
+              f"kernel {row['ms']:.6f} ms (call {row['call_ms']:.6f})  plain "
+              f"{row['plain_ms']:.6f} ms (call {row['plain_call_ms']:.6f})  "
+              f"bound {row['bound_ms']:.6f} ms (bytes) {card}", flush=True)
+    return rows
+
+
+def adaptive_point_phase(card, dev, theta, x):
+    """The JAX ``ODEEngine``'s adaptive request: one point (6,) a solve,
+    each with its own steps, phase 3's weights.  An eager fused request on
+    the first point (counted: its ``fused_lincomb`` launches must equal
+    ``expected_adaptive_lincomb_calls``); then one captured solver (the
+    engine's one compiled single-lane program) serves a stream of
+    ``ADAPTIVE_STREAM`` points, its first call and its replay of the first
+    point bitwise equal to eager; ``ADAPTIVE_CPU_POINTS`` of the stream
+    against the port on the CPU; the per-request and aggregate times and
+    one traced captured request."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.adaptive import expected_adaptive_lincomb_calls
+    from repro_torch.core.cnf import AdaptiveCNF
+    from repro_torch.kernels import ops
+    from repro_torch.models.ode_nets import cnf_vf
+
+    dim = CNF["dim"]
+    points = x[:ADAPTIVE_STREAM]
+    torch.use_deterministic_algorithms(True)
+
+    # -- the main path, counted ------------------------------------------------
+    eager_cnf = AdaptiveCNF(cnf_vf, dim, fused_stages=True, **ADAPTIVE)
+    ops.reset_counts()
+    eager, eager_ms = timed_request(eager_cnf, theta, points[0])
+    launches, plain = ops.launches, ops.plain_calls
+    info = eager[2]
+    expected = expected_adaptive_lincomb_calls(
+        info.n_accepted, info.n_rejected, 2, backward=False) \
+        + expected_adaptive_lincomb_calls(info.n_accepted, info.n_rejected, 2)
+    print(f"adaptive CNF request (the engine's: one point a solve), point 0: "
+          f"n_accepted {info.n_accepted}, n_rejected {info.n_rejected}; "
+          f"fused_lincomb launches {launches} (expected {expected}), plain "
+          f"calls {plain}; eager density + score {eager_ms:.1f} ms; ring "
+          f"{eager_cnf.solver.ring_bytes} B {card}", flush=True)
+    check(plain == 0, f"{plain} plain lincomb calls on the adaptive request")
+    check(launches > 0 and launches == expected,
+          f"adaptive request launches {launches} != expected {expected}")
+    check(eager[0].shape == () and eager[1].shape == (dim,),
+          "adaptive request output shapes")
+    check(bool(torch.isfinite(eager[0]) and torch.isfinite(eager[1]).all()),
+          "adaptive request density/score not finite")
+
+    # -- captured: one solver for the stream ---------------------------------
+    cap = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                      **ADAPTIVE)
+    first, first_ms = timed_request(cap, theta, points[0])
+    check(same_request(first, eager),
+          "adaptive request: captured first call differs from eager")
+    stream, stream_ms = [], []
+    t0 = time.perf_counter()
+    for p in points:
+        out, ms = timed_request(cap, theta, p)
+        stream.append(out)
+        stream_ms.append(ms)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    check(same_request(stream[0], eager),
+          "adaptive request: captured replay differs from eager")
+    check(all(bool(torch.isfinite(d) and torch.isfinite(s).all())
+              for d, s, _ in stream), "adaptive stream not finite")
+    stats = cap.solver.graph_stats()
+    check(set(stats) == {"attempt", "attempt_record", "adjoint"}
+          and all(v[2] is not None for v in stats.values()),
+          f"adaptive request graphs not all captured: {stats}")
+    steps = [(i.n_accepted, i.n_rejected) for _, _, i in stream]
+    ms = float(np.median(stream_ms))
+    print(f"adaptive CNF request captured == eager bitwise (point 0, first "
+          f"call and replay); first call {first_ms:.1f} ms ("
+          + ", ".join(f"{k}: warm-up {w:.1f} ms, capture {c:.1f} ms, pool "
+                      f"{b} B" for k, (w, c, b) in stats.items())
+          + f"); {ADAPTIVE_STREAM} points served by one captured solver in "
+          f"{total_ms:.1f} ms ({ADAPTIVE_STREAM / total_ms * 1e3:.3f} points "
+          f"a second, each a density and a score request), per point median "
+          f"{ms:.1f} ms, min {min(stream_ms):.1f}, max {max(stream_ms):.1f}; "
+          f"(accepted, rejected) steps {steps} {card}", flush=True)
+    print(f"eager vs captured adaptive CNF request (point 0): {eager_ms:.1f} "
+          f"vs {stream_ms[0]:.1f} ms ({eager_ms / stream_ms[0]:.2f}x) "
+          f"{card}", flush=True)
+    trace = traced("adaptive CNF request (one point), captured",
+                   lambda: adaptive_request(cap, theta, points[0]),
+                   "lincomb_kernel", card, replayed=True)
+    untraced_idle(trace, stream_ms[0], "adaptive CNF request", card)
+
+    # -- the card against the port on the CPU ----------------------------------
+    cpu_theta = pytree.tree_map(lambda t: t.cpu(), theta)
+    cpu_cnf = AdaptiveCNF(cnf_vf, dim, fused_stages=True, **ADAPTIVE)
+    errs = []
+    for i in range(1, 1 + ADAPTIVE_CPU_POINTS):
+        d_c, s_c, i_c = adaptive_request(cpu_cnf, cpu_theta, points[i].cpu())
+        d_g, s_g, i_g = stream[i]
+        errs.append((max_abs(d_g.cpu(), d_c), max_abs(s_g.cpu(), s_c)))
+        check(i_g == i_c, f"adaptive request point {i}: card steps {i_g} != "
+              f"CPU {i_c}")
+        check(torch.allclose(d_g.cpu(), d_c, **CNF_TOL)
+              and torch.allclose(s_g.cpu(), s_c, **CNF_TOL),
+              f"adaptive request point {i}: card vs CPU beyond {CNF_TOL}: "
+              f"{errs[-1]}")
+    print(f"adaptive CNF request, card (captured) vs the port on the CPU on "
+          f"{ADAPTIVE_CPU_POINTS} point(s) of the stream after point 0: same "
+          f"steps, max|diff| density "
+          f"{max(e[0] for e in errs):.3e}, score {max(e[1] for e in errs):.3e} "
+          f"(tolerance {CNF_TOL}, fp32, TF32 off)", flush=True)
+    torch.use_deterministic_algorithms(False)
+    res = dict(n_accepted=info.n_accepted, n_rejected=info.n_rejected,
+               launches=launches, expected=expected,
+               ring_bytes=eager_cnf.solver.ring_bytes, eager_ms=eager_ms,
+               first_ms=first_ms, ms=ms, stream_ms=stream_ms,
+               stream_total_ms=total_ms,
+               points_per_s=ADAPTIVE_STREAM / total_ms * 1e3, steps=steps,
+               graphs={k: dict(warmup_ms=w, capture_ms=c, pool_bytes=b)
+                       for k, (w, c, b) in stats.items()},
+               trace=trace,
+               cpu_max_abs=dict(density=max(e[0] for e in errs),
+                                score=max(e[1] for e in errs)))
+    del eager_cnf, cap
+    gc_collect()
+    return res
+
+
+def adaptive_batched_phase(card, dev, theta, x):
+    """The 10,000 points of phase 3 solved as ONE state through
+    ``AdaptiveCNF``: one step sequence and one error norm for the batch, a
+    configuration the JAX engine does not serve (it solves each point
+    alone), kept for the ring's size and the batched state's times.  Eager
+    fused (counted: its ``fused_lincomb`` launches must equal
+    ``expected_adaptive_lincomb_calls``), eager unfused, and captured
+    (``capture=True``: one CUDA graph of an attempt with and one without
+    the ring write, one of an adjoint step), all four with the same steps
+    and the density and score bitwise equal.  Then the card against the
+    port on the CPU on 256 points, the ring's bytes against the peak and
+    the times (the trace is the one-point request's)."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.adaptive import (CHECK_EVERY,
+                                           expected_adaptive_lincomb_calls)
+    from repro_torch.core.cnf import AdaptiveCNF
+    from repro_torch.kernels import ops
+    from repro_torch.models.ode_nets import cnf_vf
+
+    dim = CNF["dim"]
+    # the ring: max_steps slots of the state and its 7 stages, fp32
+    state_bytes = x.numel() * 4 + x.shape[0] * 4
+    ring_pred = ADAPTIVE["max_steps"] * (1 + 7) * state_bytes
+    torch.use_deterministic_algorithms(True)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+
+    # -- the main path, counted ------------------------------------------------
+    fused = AdaptiveCNF(cnf_vf, dim, fused_stages=True, **ADAPTIVE)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_f, s_f, info = adaptive_request(fused, theta, x)
+    torch.cuda.synchronize()
+    first_eager_ms = (time.perf_counter() - t0) * 1e3
+    launches, plain = ops.launches, ops.plain_calls
+    peak = torch.cuda.max_memory_allocated() - before
+    expected = expected_adaptive_lincomb_calls(
+        info.n_accepted, info.n_rejected, 2, backward=False) \
+        + expected_adaptive_lincomb_calls(info.n_accepted, info.n_rejected, 2)
+    print(f"adaptive CNF batched state (not the engine's request): batch "
+          f"{x.shape[0]}, dopri5 rtol = atol "
+          f"= {ADAPTIVE['rtol']}, t in [{ADAPTIVE['t0']}, {ADAPTIVE['t1']}], "
+          f"fused: n_accepted {info.n_accepted}, n_rejected "
+          f"{info.n_rejected}; fused_lincomb launches {launches} (expected "
+          f"{expected}), plain calls {plain}", flush=True)
+    check(plain == 0, f"{plain} plain lincomb calls on the adaptive path")
+    check(launches > 0 and launches == expected,
+          f"adaptive launches {launches} != expected {expected}")
+    check(d_f.shape == (x.shape[0],) and s_f.shape == x.shape,
+          "adaptive CNF output shapes")
+    check(bool(torch.isfinite(d_f).all() and torch.isfinite(s_f).all()),
+          "adaptive CNF density/score not finite")
+    ring = fused.solver.ring_bytes
+    print(f"adaptive ring: {ring} B on the card (predicted max_steps x (1 + 7 "
+          f"stages) x {state_bytes} B = {ring_pred} B, + h and t); peak "
+          f"allocated above the phase's start {peak} B = "
+          f"{peak / ring_pred:.4f} of the prediction {card}", flush=True)
+    check(ring_pred <= ring <= ring_pred + 2 * 8 * ADAPTIVE["max_steps"],
+          f"ring bytes {ring} against the predicted {ring_pred}")
+    check(ring <= peak, f"peak {peak} B below the ring's {ring} B")
+
+    unfused = AdaptiveCNF(cnf_vf, dim, **ADAPTIVE)
+    d_u, s_u, info_u = adaptive_request(unfused, theta, x)
+    del unfused
+    check(info_u == info, f"unfused steps {info_u} != fused {info}")
+    check(torch.equal(bits(d_u), bits(d_f)) and torch.equal(bits(s_u),
+                                                           bits(s_f)),
+          "adaptive CNF fused and unfused differ on the card: max|diff| "
+          f"{max_abs(d_u, d_f)}, {max_abs(s_u, s_f)}")
+    print("adaptive CNF fused == unfused bitwise on the card (density and "
+          "score), same steps", flush=True)
+
+    # -- captured ----------------------------------------------------------------
+    cap = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                      **ADAPTIVE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_c, s_c, info_c = adaptive_request(cap, theta, x)
+    torch.cuda.synchronize()
+    cap_first_ms = (time.perf_counter() - t0) * 1e3
+    replay_ms = []
+    for _ in range(ADAPTIVE_REPLAYS):
+        t0 = time.perf_counter()
+        d_r, s_r, info_r = adaptive_request(cap, theta, x)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        check(info_r == info and torch.equal(bits(d_r), bits(d_f))
+              and torch.equal(bits(s_r), bits(s_f)),
+              "adaptive captured replay differs from eager: max|diff| "
+              f"{max_abs(d_r, d_f)}, {max_abs(s_r, s_f)}")
+    check(info_c == info and torch.equal(bits(d_c), bits(d_f))
+          and torch.equal(bits(s_c), bits(s_f)),
+          "adaptive captured first call differs from eager")
+    stats = cap.solver.graph_stats()
+    check(set(stats) == {"attempt", "attempt_record", "adjoint"}
+          and all(v[2] is not None for v in stats.values()),
+          f"adaptive graphs not all captured: {stats}")
+    replays = cap.solver.replays
+    ms = float(np.median(replay_ms))
+    print(f"adaptive CNF captured == eager bitwise (density and score, first "
+          f"call and {ADAPTIVE_REPLAYS} replayed requests), same steps; "
+          f"first call {cap_first_ms:.1f} ms ("
+          + ", ".join(f"{k}: warm-up {w:.1f} ms, capture {c:.1f} ms, pool "
+                      f"{b} B" for k, (w, c, b) in stats.items())
+          + f"); request {ms:.1f} ms (median of {ADAPTIVE_REPLAYS}: "
+          + ", ".join(f"{v:.1f}" for v in replay_ms)
+          + f"), live read every {CHECK_EVERY} attempts, {replays} attempt "
+          f"replays for the score's {info.n_accepted + info.n_rejected} "
+          f"attempts {card}", flush=True)
+    print(f"eager (first call) vs captured adaptive CNF batched state: "
+          f"{first_eager_ms:.1f} vs {ms:.1f} ms ({first_eager_ms / ms:.2f}x) "
+          f"{card}", flush=True)
+
+    # -- the card against the port on the CPU, 256 points ----------------------
+    xs = x[:256]
+    d_g, s_g, i_g = adaptive_request(
+        AdaptiveCNF(cnf_vf, dim, fused_stages=True, **ADAPTIVE), theta, xs)
+    cpu_theta = pytree.tree_map(lambda t: t.cpu(), theta)
+    d_c, s_c, i_c = adaptive_request(
+        AdaptiveCNF(cnf_vf, dim, fused_stages=True, **ADAPTIVE), cpu_theta,
+        xs.cpu())
+    d_err, s_err = max_abs(d_g.cpu(), d_c), max_abs(s_g.cpu(), s_c)
+    check(i_g == i_c, f"adaptive card vs CPU steps {i_g} != {i_c}")
+    check(torch.allclose(d_g.cpu(), d_c, **CNF_TOL)
+          and torch.allclose(s_g.cpu(), s_c, **CNF_TOL),
+          f"adaptive card vs CPU beyond {CNF_TOL}: density {d_err}, score "
+          f"{s_err}")
+    print(f"adaptive CNF batched state, card vs CPU port on 256 points: "
+          f"same steps "
+          f"({i_g.n_accepted} accepted, {i_g.n_rejected} rejected), "
+          f"max|diff| density {d_err:.3e}, score {s_err:.3e} (tolerance "
+          f"{CNF_TOL}, fp32, TF32 off)", flush=True)
+    torch.use_deterministic_algorithms(False)
+    res = dict(n_accepted=info.n_accepted, n_rejected=info.n_rejected,
+               launches=launches, expected=expected, ring_bytes=ring,
+               ring_bytes_predicted=ring_pred, peak_bytes=peak,
+               eager_ms=first_eager_ms,
+               first_ms=cap_first_ms, ms=ms, replay_ms=replay_ms,
+               check_every=CHECK_EVERY, replays=replays,
+               graphs={k: dict(warmup_ms=w, capture_ms=c, pool_bytes=b)
+                       for k, (w, c, b) in stats.items()},
+               cpu_max_abs=dict(density=d_err, score=s_err))
+    del fused, cap
+    gc_collect()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the stiff Robertson example (paper §5.3), fp64
+# ---------------------------------------------------------------------------
+
+ROBERTSON_EPOCHS = 3
+ROB_LOSS_RTOL = 1e-8     # card vs CPU, fp64 states (summation order)
+ROB_GRAD_TOL = 1e-5      # max|card - cpu| / max|cpu| per fp32 weight leaf
+
+
+def robertson_phase(card, dev):
+    """The port's example entry (``repro_torch.examples.stiff_robertson.
+    run``) on the card: the beuler truth, 3 CN epochs and 3 Dopri5 epochs
+    of ``mlp_vf`` (hidden 32, 3 hidden layers) from seed 0.  Every CN
+    solve converged; the pnode, revolve and revolve2 CN gradients at the
+    initial weights bitwise equal on the card; epoch 0's loss and
+    gradient against the port's CPU run of the same seed."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.examples import stiff_robertson as trob
+
+    lines = []
+    t0 = time.perf_counter()
+    out = trob.run(ROBERTSON_EPOCHS, device=dev, log=lines.append)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    stats = out["cn_stats"]
+    check(len(stats) > 0 and not any(s.diverged for s in stats),
+          f"a CN solve diverged on the card: "
+          f"{[s for s in stats if s.diverged][:3]}")
+    for key in ("cn", "dopri5"):
+        r = out[key]
+        check(all(math.isfinite(v) for v in r["losses"] + r["gnorms"]),
+              f"Robertson {key}: non-finite loss or gradient norm")
+        print(f"Robertson {key}: losses "
+              + ", ".join(f"{v:.10f}" for v in r["losses"]) + "; |g| "
+              + ", ".join(f"{v:.6e}" for v in r["gnorms"]) + "; epoch ms "
+              + ", ".join(f"{v:.1f}" for v in r["ms"]) + f" {card}",
+              flush=True)
+    print(f"Robertson on the card: {len(stats)} CN solves over "
+          f"{ROBERTSON_EPOCHS} epochs, none diverged (max Newton residual "
+          f"{max(s.max_residual for s in stats):.3e}, Newton iterations "
+          f"{sum(s.newton_iters for s in stats)}); truth + training "
+          f"{total_ms:.1f} ms {card}", flush=True)
+
+    # the three CN checkpoint policies at the initial weights
+    y0, target = trob.scaled_data(out["truth"], dev)
+    theta = trob.mlp_vf_init(torch.Generator().manual_seed(0), 3, hidden=32,
+                             n_hidden=3, device=dev)
+    grads = {}
+    for policy, ncheck in (("pnode", None), ("revolve", 1), ("revolve2", 1)):
+        loss_cn, _ = trob.make_losses(y0, target, adjoint=policy,
+                                      ncheck=ncheck)
+        loss, g = trob.value_and_grad(loss_cn, theta)
+        grads[policy] = [loss] + pytree.tree_leaves(g)
+    for policy in ("revolve", "revolve2"):
+        check(all(torch.equal(bits(a), bits(b)) for a, b in
+                  zip(grads[policy], grads["pnode"])),
+              f"Robertson CN {policy} gradient != pnode bitwise on the card")
+    check(float(grads["pnode"][0]) == out["cn"]["losses"][0],
+          "Robertson CN epoch-0 loss differs from the pnode recompute")
+    print("Robertson CN gradients: pnode == revolve == revolve2 bitwise on "
+          "the card (ncheck 1 of 2 steps a solve)", flush=True)
+
+    # epoch 0 against the port on the CPU, same seed
+    cpu = trob.run(1, device="cpu", log=lambda *_: None)
+    errs = {}
+    for key in ("cn", "dopri5"):
+        lc, lg = cpu[key]["losses"][0], out[key]["losses"][0]
+        rel = max(max_abs(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(pytree.tree_leaves(out[key]["grads0"]),
+                                  pytree.tree_leaves(cpu[key]["grads0"])))
+        errs[key] = dict(loss_rel=abs(lg - lc) / abs(lc), grad_rel=rel)
+        check(abs(lg - lc) <= ROB_LOSS_RTOL * abs(lc) and rel <= ROB_GRAD_TOL,
+              f"Robertson {key} card vs CPU: loss {lg} vs {lc}, worst grad "
+              f"max|diff|/max|g| {rel}")
+    print("Robertson epoch 0, card vs the port on the CPU: "
+          + "; ".join(f"{k} loss rel {v['loss_rel']:.3e}, grad "
+                      f"max|diff|/max|g| {v['grad_rel']:.3e}"
+                      for k, v in errs.items())
+          + f" (tolerance loss rtol {ROB_LOSS_RTOL}, grads {ROB_GRAD_TOL}, "
+          f"fp64 states)", flush=True)
+    return dict(epochs=ROBERTSON_EPOCHS,
+                cn=dict(losses=out["cn"]["losses"], gnorms=out["cn"]["gnorms"],
+                        epoch_ms=out["cn"]["ms"]),
+                dopri5=dict(losses=out["dopri5"]["losses"],
+                            gnorms=out["dopri5"]["gnorms"],
+                            epoch_ms=out["dopri5"]["ms"]),
+                cn_solves=len(stats),
+                newton_iters=sum(s.newton_iters for s in stats),
+                total_ms=total_ms, cpu_agreement=errs)
+
+
+def gc_collect():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1335,6 +1812,16 @@ def main():
     from repro_torch.optim.adamw import AdamW
 
     t_start = time.time()
+    phase_s = {}
+    t_lap = [t_start]
+
+    def lap(label):
+        # wall seconds since the previous lap, printed and kept
+        now = time.time()
+        phase_s[label] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+        print(f"phase {label}: {phase_s[label]} s", flush=True)
+
     # -- phase 1 -------------------------------------------------------------
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
@@ -1357,7 +1844,9 @@ def main():
                     print(f"  ptxas {stem} ...{fn}: {line.strip()}")
 
     # -- phase 2 -------------------------------------------------------------
+    lap("1 build")
     worst, timing_rows = kernel_phase(card)
+    lap("2 fused_lincomb")
 
     # -- set-up of phases 3-4 (weights and data from seeds) -------------------
     dev = torch.device("cuda")
@@ -1508,9 +1997,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("3-4 CNF and classifier")
+
     # -- phase 5: the flash kernel ------------------------------------------
     torch.use_deterministic_algorithms(False)  # the LM phases hold tolerances
     fl = flash_phase(card, dev)
+    lap("5 flash")
 
     # -- phase 6: LM serving at full width, counted ---------------------------
     lm_cfg = dataclasses.replace(get_arch(LM["arch"]), attn_impl="pallas")
@@ -1522,11 +2014,15 @@ def main():
     lm_res["eager_vs_captured"] = eager_decode_phase(lm_cfg, lm_params, LM,
                                                      lm_res, card, dev)
 
+    lap("6 TinyLlama serving")
+
     # -- phase 7: agreement ---------------------------------------------------
     lm_agreement_phase(lm_cfg, lm_params, card, dev)
+    lap("7 LM agreement")
 
     # -- phase 8: the RWKV6 kernel -------------------------------------------
     rw = rwkv6_phase(card, dev)
+    lap("8 RWKV6 kernel")
 
     # -- phase 9: RWKV6-7B serving at full width, counted ---------------------
     # TinyLlama's weights and states go first: RWKV6-7B holds 15 GB
@@ -1548,7 +2044,21 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 10: RWKV6 agreement --------------------------------------------
+    lap("9 RWKV6-7B serving")
     rwkv_agreement_phase(card, dev)
+    lap("10 RWKV6 agreement")
+
+    # -- phase 12: the adaptive CNF request at POWER width, counted ----------
+    adaptive_point = adaptive_point_phase(card, dev, cnf_theta, x)
+    lap("12a adaptive CNF request")
+    adaptive = adaptive_batched_phase(card, dev, cnf_theta, x)
+    lap("12b adaptive CNF batched")
+    scaled_rows = lincomb_scaled_rows(card, dev)
+    lap("12c scaled form")
+
+    # -- phase 13: the stiff Robertson example, fp64 -------------------------
+    robertson = robertson_phase(card, dev)
+    lap("13 Robertson")
 
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
@@ -1557,10 +2067,16 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/csrc/lincomb.cu",
         "replaces": "src/repro/kernels/ops.py:71",
-        "launches": total_launches,
-        "expected_launches": exp_cnf + exp_cls,
+        "launches": total_launches + adaptive_point["launches"]
+        + adaptive["launches"],
+        "expected_launches": exp_cnf + exp_cls + adaptive_point["expected"]
+        + adaptive["expected"],
         "launches_cnf": cnf_launches,
         "launches_classifier": cls_launches,
+        "launches_adaptive_request": adaptive_point["launches"],
+        "expected_launches_adaptive_request": adaptive_point["expected"],
+        "launches_adaptive_batched": adaptive["launches"],
+        "expected_launches_adaptive_batched": adaptive["expected"],
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -1574,6 +2090,10 @@ def main():
                                                 "dtype", "bytes")},
         "eager_traces": eager_traces,
         "captured": graphs,
+        "scaled_form": scaled_rows,
+        "adaptive_request": adaptive_point,
+        "adaptive_batched": adaptive,
+        "robertson": robertson,
         "card": smi,
     }, {
         "name": "flash_attention",
@@ -1687,6 +2207,7 @@ def main():
                   "traces": rw_res["traces"]},
         "card": smi,
     }]
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.time() - t_start:.1f} s")
     print(smi)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.ode_nets import resolve_device
+
 
 def _convert(tree, leaf_fn, key=None):
     if isinstance(tree, dict):
@@ -22,9 +24,14 @@ def _convert(tree, leaf_fn, key=None):
     return leaf_fn(tree, key)
 
 
-def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None):
+def params_from_jax(tree, *, device="cuda",
+                    dtype: torch.dtype | None = None):
     """A JAX-layout tree of numpy arrays -> the port's tree of tensors on
-    ``device`` (cast to ``dtype`` when given)."""
+    ``device`` (cast to ``dtype`` when given).  Like every entry point of
+    the port it places them on the card unless the caller asks for the CPU,
+    and raises when there is no card."""
+    device = resolve_device(device)
+
     def leaf(x, key):
         a = np.asarray(x)
         if key == "w" and a.ndim == 4:

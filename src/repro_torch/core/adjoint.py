@@ -206,19 +206,12 @@ def checkpoint_floats(method: str, n_steps: int, adjoint: str, state_size: int,
     raise ValueError(adjoint)
 
 
-def expected_lincomb_calls(method: str, n_steps: int, n_leaves: int,
-                           policy: str, ncheck: int | None = None,
-                           backward: bool = True) -> int:
-    """Fused lincomb launches (or plain calls on the CPU) that one fused
-    ``odeint`` makes: its forward solve, plus its reverse sweep when
-    ``backward``.  Mirrors the skip rules of ``tree_stage_lincomb`` and
-    ``rk_adjoint_step``: zero weights are dropped, an empty pair list
-    launches nothing, and a stage the adjoint skips (dopri5's 7th)
-    contributes no term.  One launch per leaf; no leaf may be empty.
-    E.g. rk4, N_t = 4, one leaf: 16 forward + 24 reverse = 40."""
-    if policy not in _FUSED_POLICIES:
-        raise ValueError(f"adjoint={policy!r} cannot run fused; one of "
-                         f"{_FUSED_POLICIES}")
+def lincomb_launches_per_step(method: str) -> tuple[int, int, int]:
+    """Fused lincomb launches per leaf of one ``rk_stage_inputs``, of one
+    ``rk_step`` and of one ``rk_adjoint_step``.  Mirrors the skip rules of
+    ``tree_stage_lincomb`` and ``rk_adjoint_step``: zero weights are
+    dropped, an empty pair list launches nothing, and a stage the adjoint
+    skips (dopri5's 7th) contributes no term."""
     tab = get_tableau(method)
     s = tab.num_stages
     a, b = tab.a, tab.b
@@ -228,7 +221,21 @@ def expected_lincomb_calls(method: str, n_steps: int, n_leaves: int,
               for i in range(s)]
     v_launch = sum(1 for i in range(s) if active[i] and any(
         a[j, i] != 0 and active[j] for j in range(i + 1, s)))
-    adj = stage_in + v_launch                     # rk_adjoint_step
+    return stage_in, step, stage_in + v_launch    # rk_adjoint_step
+
+
+def expected_lincomb_calls(method: str, n_steps: int, n_leaves: int,
+                           policy: str, ncheck: int | None = None,
+                           backward: bool = True) -> int:
+    """Fused lincomb launches (or plain calls on the CPU) that one fused
+    ``odeint`` makes: its forward solve, plus its reverse sweep when
+    ``backward``; per-step counts from ``lincomb_launches_per_step``.  One
+    launch per leaf; no leaf may be empty.  E.g. rk4, N_t = 4, one leaf:
+    16 forward + 24 reverse = 40."""
+    if policy not in _FUSED_POLICIES:
+        raise ValueError(f"adjoint={policy!r} cannot run fused; one of "
+                         f"{_FUSED_POLICIES}")
+    stage_in, step, adj = lincomb_launches_per_step(method)
     fwd = n_steps * step
     if not backward:
         return fwd * n_leaves

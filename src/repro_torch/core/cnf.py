@@ -9,7 +9,10 @@ Trace estimation: exact (d ``torch.func.jvp`` probes, for small d — the
 paper's tabular datasets are 6/43/63-dim) or Hutchinson (one vjp with a
 fixed Rademacher probe).  The augmented system is just another vector
 field, so every adjoint policy applies unchanged — this is what the
-paper's Tables 3-7 measure.
+paper's Tables 3-7 measure.  ``AdaptiveCNF`` solves it with adaptive
+Dopri5 instead (``core/adaptive.py``); on one point it is the JAX
+``ODEEngine``'s adaptive density and score request
+(``repro/serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.core.adaptive import AdaptiveInfo, AdaptiveSolver
 from repro_torch.core.adjoint import odeint
 from repro_torch.core.integrators import PyTree, VectorField
 
@@ -30,7 +34,9 @@ def exact_trace_vf(f: VectorField, dim: int) -> VectorField:
 
         def jac_diag_i(i):
             e = torch.zeros_like(x)
-            e[..., i] = 1.0
+            # fill_, not e[..., i] = 1.0: on one point (dim,) that
+            # assignment copies a host scalar, which a graph capture refuses
+            e.select(-1, i).fill_(1.0)
             _, jv = torch.func.jvp(lambda xx: f(xx, theta, t), (x,), (e,))
             return jv[..., i]
 
@@ -55,6 +61,14 @@ def hutchinson_trace_vf(f: VectorField, probe: torch.Tensor) -> VectorField:
         return (fx, -trace_est)
 
     return aug
+
+
+def _base_log_prob(z: torch.Tensor, dlogdet: torch.Tensor) -> torch.Tensor:
+    # log p(x) = log p_base(z) + integral of -tr(J) accumulated in dlogdet
+    dim = z.shape[-1]
+    base_logp = -0.5 * torch.sum(z ** 2, dim=-1) \
+        - 0.5 * dim * math.log(2 * math.pi)
+    return base_logp + dlogdet
 
 
 def cnf_log_prob(f: VectorField, x: torch.Tensor, theta: PyTree, *,
@@ -83,10 +97,40 @@ def cnf_log_prob(f: VectorField, x: torch.Tensor, theta: PyTree, *,
     z, dlogdet = odeint(aug, (x, logdet0), theta, dt=dt, n_steps=n_steps,
                         t0=t0, method=method, adjoint=adjoint, ncheck=ncheck,
                         fused_stages=fused_stages)
-    base_logp = -0.5 * torch.sum(z ** 2, dim=-1) \
-        - 0.5 * dim * math.log(2 * math.pi)
-    # log p(x) = log p_base(z) + integral of -tr(J) accumulated in dlogdet
-    return base_logp + dlogdet
+    return _base_log_prob(z, dlogdet)
+
+
+class AdaptiveCNF:
+    """log p(x) under the CNF with the exact trace, the augmented ODE
+    solved from ``t0`` to ``t1`` by adaptive Dopri5 with the discrete
+    adjoint over accepted steps (``core/adaptive.py``), at the JAX
+    ``ODEEngine``'s adaptive defaults (rtol = atol = 1e-6, 512 steps).
+
+    ``x`` of shape (dim,) is one point, the engine's adaptive request: it
+    serves each point as its own single-lane solve with its own steps.  A
+    batch (n, dim) is solved as one state, so its points share one step
+    sequence and one error norm, which the engine does not serve.
+
+    ``log_prob(x, theta)`` returns ``(log p, AdaptiveInfo)`` and is
+    differentiable w.r.t. ``x`` and ``theta`` (the score is its gradient
+    w.r.t. ``x``).  The solver, its ring of accepted steps and, with
+    ``capture=True``, its CUDA graphs are kept across calls with one
+    shape, dtype and device.  ``fused_stages`` runs the stage updates
+    through ``fused_lincomb``'s scaled form (h a device scalar)."""
+
+    def __init__(self, f: VectorField, dim: int, *, t0: float = 0.0,
+                 t1: float = 1.0, rtol: float = 1e-6, atol: float = 1e-6,
+                 max_steps: int = 512, fused_stages: bool = False,
+                 capture: bool = False):
+        self.solver = AdaptiveSolver(
+            exact_trace_vf(f, dim), t0=t0, t1=t1, rtol=rtol, atol=atol,
+            max_steps=max_steps, fused_stages=fused_stages, capture=capture)
+
+    def log_prob(self, x: torch.Tensor,
+                 theta: PyTree) -> tuple[torch.Tensor, AdaptiveInfo]:
+        logdet0 = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        (z, dlogdet), info = self.solver((x, logdet0), theta)
+        return _base_log_prob(z, dlogdet), info
 
 
 def cnf_sample(f: VectorField, z: torch.Tensor, theta: PyTree, *, dt: float,

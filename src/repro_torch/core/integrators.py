@@ -31,11 +31,15 @@ tree_map = pytree.tree_map  # several trees of one structure: tree_map(fn, a, b)
 
 
 # ---------------------------------------------------------------------------
-# pytree arithmetic helpers (those the fixed-step path uses)
+# pytree arithmetic helpers
 # ---------------------------------------------------------------------------
 
 def tree_add(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
 
 
 def tree_scale(s, a: PyTree) -> PyTree:
@@ -96,6 +100,20 @@ def tree_stack(trees) -> PyTree:
 
 def tree_unstack(tree, n) -> list:
     return [tree_map(lambda x: x[i], tree) for i in range(n)]
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """sum over leaves of sum(a * b), the leaves added left to right."""
+    parts = [torch.sum(x * y) for x, y in zip(pytree.tree_leaves(a),
+                                              pytree.tree_leaves(b))]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def tree_norm(a: PyTree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
 
 
 # ---------------------------------------------------------------------------

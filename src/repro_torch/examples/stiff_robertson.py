@@ -1,0 +1,200 @@
+"""Paper §5.3: learning Robertson's stiff chemical kinetics with an
+implicit Crank-Nicolson integrator and its discrete adjoint (the capability
+PNODE uniquely enables) vs adaptive explicit Dopri5.  The port's
+counterpart of the JAX package's ``examples/stiff_robertson.py``, in fp64
+as that one runs (``jax_enable_x64``): the states and the trajectory are
+fp64, the MLP's weights fp32, promoted where they meet the state.
+
+  PYTHONPATH=src python -m repro_torch.examples.stiff_robertson \
+      [--epochs 200] [--device cuda|cpu]
+
+Expected: CN trains stably to low loss; Dopri5's gradient norm is orders of
+magnitude larger / the step count explodes as the learned model stiffens
+(paper Fig. 5 and Table 8).  Both losses run eagerly: the Newton and GMRES
+exits are read on the host.  ``--mem-budget`` (the memory planner's
+choice of checkpoint policy) is not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core.adaptive import odeint_adaptive
+from repro_torch.core.implicit import odeint_implicit
+from repro_torch.models.ode_nets import mlp_vf, mlp_vf_init, resolve_device
+from repro_torch.optim.adamw import AdamW
+
+K1, K2, K3 = 0.04, 3e7, 1e4
+#: the CN solver's Newton and GMRES caps (the JAX example's)
+CN_KW = dict(method="cn", newton_iters=6, gmres_iters=10)
+
+
+def robertson_rhs(u, _th, _t):
+    u1, u2, u3 = u
+    return torch.stack([
+        -K1 * u1 + K3 * u2 * u3,
+        K1 * u1 - K2 * u2 ** 2 - K3 * u2 * u3,
+        K2 * u2 ** 2,
+    ])
+
+
+def robertson_truth(n_pts: int = 30, device="cpu"):
+    """Integrate the true Robertson system on a log-time grid (backward
+    Euler with tiny steps — the reference trajectory).  Returns the times
+    and the (n_pts, 3) fp64 states as numpy arrays."""
+    ts = np.logspace(-5, 2, n_pts)
+    u = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=device)
+    traj = []
+    t_prev = 0.0
+    for t in ts:
+        u = odeint_implicit(robertson_rhs, u, 0.0,
+                            dt=(float(t) - t_prev) / 40, n_steps=40,
+                            t0=t_prev, method="beuler", newton_iters=20)
+        traj.append(u.cpu().numpy())
+        t_prev = float(t)
+    return ts, np.array(traj)
+
+
+def scaled_data(y: np.ndarray, device):
+    """Min-max feature scaling (paper eq. 16) — crucial: u2 is ~1e-5
+    scale.  Returns (y0, target) as fp64 tensors on ``device``."""
+    lo, hi = y.min(axis=0), y.max(axis=0)
+    y_s = torch.from_numpy((y - lo) / (hi - lo + 1e-12)).to(device)
+    return y_s[0], y_s
+
+
+def vector_field(u, theta, t):
+    """``mlp_vf`` with the weights promoted to the state's dtype, as the JAX
+    package's matmul of an fp64 state with fp32 weights promotes them (the
+    gradient w.r.t. a weight comes back in its own dtype)."""
+    return mlp_vf(u, pytree.tree_map(lambda p: p.to(u.dtype), theta), t)
+
+
+def make_losses(y0, target, *, adjoint: str = "pnode",
+                ncheck: int | None = None, cn_stats: list | None = None):
+    """The two training losses (MAE over the observation points, paper
+    eq. 15): fixed-step CN over the scaled pseudo-time horizon, matching
+    the observation points, and adaptive Dopri5 over the same intervals.
+    ``adjoint``/``ncheck`` pick the CN checkpoint policy; each CN solve's
+    ``ImplicitStats`` is appended to ``cn_stats`` when given."""
+    n_obs = target.shape[0]
+
+    def loss_cn(theta):
+        us, u = [], y0
+        for k in range(n_obs - 1):
+            u, stats = odeint_implicit(vector_field, u, theta, dt=0.5,
+                                       n_steps=2, t0=float(k),
+                                       adjoint=adjoint, ncheck=ncheck,
+                                       return_stats=True, **CN_KW)
+            if cn_stats is not None:
+                cn_stats.append(stats)
+            us.append(u)
+        pred = torch.stack([y0] + us)
+        return torch.mean(torch.abs(pred - target))
+
+    def loss_dopri(theta):
+        us, u = [], y0
+        for k in range(n_obs - 1):
+            u, _ = odeint_adaptive(vector_field, u, theta, t0=float(k),
+                                   t1=float(k + 1), rtol=1e-6, atol=1e-6,
+                                   max_steps=512)
+            us.append(u)
+        pred = torch.stack([y0] + us)
+        return torch.mean(torch.abs(pred - target))
+
+    return loss_cn, loss_dopri
+
+
+def value_and_grad(loss_fn, params):
+    """(loss, gradient tree) of ``loss_fn`` at ``params``."""
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss = loss_fn(pytree.tree_unflatten(leaves, spec))
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), pytree.tree_unflatten(list(grads), spec)
+
+
+def grad_norm(g) -> float:
+    """sqrt(sum of squares) over the gradient's leaves, in their fp32."""
+    return float(torch.sqrt(sum(torch.sum(x ** 2)
+                                for x in pytree.tree_leaves(g))))
+
+
+def train(loss_fn, theta, epochs: int, *, log=print):
+    """AdamW on ``loss_fn`` from ``theta``, the JAX example's schedule.
+    Returns losses, gradient norms, each epoch's host milliseconds (ending
+    in a synchronize on the card) and the first epoch's gradient."""
+    device = pytree.tree_leaves(theta)[0].device
+    opt = AdamW(lr=5e-3, weight_decay=0.0, warmup_steps=10,
+                total_steps=epochs)
+    state, params = opt.init(theta), theta
+    losses, gnorms, ms, grads0 = [], [], [], None
+    for ep in range(epochs):
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(loss_fn, params)
+        with torch.no_grad():
+            params, state, _ = opt.update(g, state, params)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        grads0 = g if grads0 is None else grads0
+        losses.append(float(loss))
+        gnorms.append(grad_norm(g))
+        if ep % max(1, epochs // 10) == 0:
+            log(f"  epoch {ep:4d} loss {losses[-1]:.5f} |g| "
+                f"{gnorms[-1]:.3e}")
+    return dict(losses=losses, gnorms=gnorms, ms=ms, grads0=grads0,
+                params=params)
+
+
+def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
+        theta=None, log=print):
+    """The example: the truth, then CN and Dopri5 training of ``mlp_vf``
+    (``hidden`` wide, 3 hidden layers; ``theta`` overrides the seeded
+    weights).  Returns {"cn": ..., "dopri5": ...} as ``train`` returns,
+    the CN solves' ``ImplicitStats`` under "cn_stats", and the truth."""
+    device = resolve_device(device)
+    ts, y = robertson_truth(20, device=device)
+    y0, target = scaled_data(y, device)
+    if theta is None:
+        theta = mlp_vf_init(torch.Generator().manual_seed(seed), 3,
+                            hidden=hidden, n_hidden=3, device=device)
+    cn_stats: list = []
+    loss_cn, loss_dopri = make_losses(y0, target, cn_stats=cn_stats)
+    out = dict(ts=ts, truth=y, cn_stats=cn_stats)
+    for key, name, loss_fn in (("cn", "CN (implicit)", loss_cn),
+                               ("dopri5", "Dopri5 (explicit adaptive)",
+                                loss_dopri)):
+        log(f"\n=== training with {name} ===")
+        t0 = time.perf_counter()
+        out[key] = res = train(loss_fn, theta, epochs, log=log)
+        log(f"  final loss {res['losses'][-1]:.5f}; max |g| "
+            f"{max(res['gnorms']):.3e}; {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--epochs", type=int, default=200)
+    ap.add_argument("--hidden", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mem-budget", type=int, default=None,
+                    help="not ported: the memory planner (ROADMAP Queue 1 "
+                         "item 9)")
+    args = ap.parse_args(argv)
+    if args.mem_budget is not None:
+        raise NotImplementedError(
+            "--mem-budget routes the CN solves through the memory planner "
+            "(adjoint='auto'), which is not ported yet: ROADMAP Queue 1 "
+            "item 9")
+    return run(args.epochs, hidden=args.hidden, device=args.device,
+               seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

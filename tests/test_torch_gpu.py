@@ -17,7 +17,11 @@ CUDA-graph replay
 (``repro_torch.launch.graphs.StepGraph``) bitwise equal to eager PyTorch:
 decode of both LM families, the fixed-step gradient under every adjoint
 policy, the CNF request, ``LMEngine`` sampling at temperature > 0, and
-the refusals (a changed held tensor, a capture that fails).
+the refusals (a changed held tensor, a capture that fails); adaptive
+Dopri5 (``fused_lincomb``'s scaled form at the adaptive CNF's leaf
+shapes, the adaptive CNF request fused == unfused and captured == eager
+bitwise, with the expected launches) and the implicit theta-method (the
+three policies bitwise equal), each against the port's CPU run in fp64.
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -33,7 +37,9 @@ import dataclasses
 
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import adaptive as tad
 from repro_torch.core import adjoint as tadj
+from repro_torch.core import implicit as timp
 from repro_torch.core.depth_ode import ODEBlock
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_cases import (FLASH_MASKS, FLASH_RAGGED,
@@ -44,7 +50,7 @@ from repro_torch.kernels.ref import (attention_plain, limit_ratio,
                                      lincomb_plain, rwkv6_plain, rwkv6_ref)
 from repro_torch.kernels.rwkv6_cases import (RWKV6_GRID, RWKV6_REF_TOL,
                                              RWKV6_TOL, rwkv6_inputs)
-from repro_torch.core.cnf import cnf_log_prob
+from repro_torch.core.cnf import AdaptiveCNF, cnf_log_prob
 from repro_torch.launch.graphs import StepGraph
 from repro_torch.models import lm, ode_nets
 from repro_torch.nn import ssm
@@ -651,6 +657,172 @@ def test_engine_replay_sampling_matches_the_eager_loop(cuda_nondet):
             tok = ref._sample(torch.nan_to_num(logits))[:, None]
             out.append(tok)
     np.testing.assert_array_equal(served, torch.cat(out, 1).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# adaptive Dopri5 and the implicit theta-method on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(10000, 6), (10000,)])
+@pytest.mark.parametrize("n_terms,bc", [(1, None), (5, None), (6, None),
+                                        (4, 1.0), (3, 0.0)])
+def test_fused_lincomb_scaled_form_at_the_adaptive_shapes(cuda, dtype, shape,
+                                                          n_terms, bc):
+    """The form the adaptive path launches: h a 0-d tensor on the card, in
+    the state's dtype, at the CNF state's (10000, 6) and log-density
+    (10000,) leaves."""
+    gen = torch.Generator().manual_seed(n_terms)
+    base = torch.randn(shape, generator=gen, dtype=dtype).to(cuda)
+    terms = [torch.randn(shape, generator=gen, dtype=dtype).to(cuda)
+             for _ in range(n_terms)]
+    h = torch.tensor(0.0123456789, dtype=dtype).to(cuda)
+    ws = WEIGHTS[:n_terms]
+    before = ops.launches
+    out = ops.fused_lincomb(base, terms, ws, h, bc)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.equal(_bits(out), _bits(lincomb_plain(base, terms, ws, h,
+                                                       bc)))
+
+
+def _adaptive_request(cnf, theta, x):
+    with torch.no_grad():
+        density, info = cnf.log_prob(x, theta)
+    xg = x.detach().clone().requires_grad_(True)
+    lp, info_g = cnf.log_prob(xg, theta)
+    (score,) = torch.autograd.grad(lp.sum(), xg)
+    assert info == info_g
+    return density, score, info
+
+
+def test_adaptive_cnf_fused_unfused_and_captured_bitwise(cuda):
+    theta = ode_nets.cnf_vf_init(torch.Generator().manual_seed(0), 6,
+                                 hidden=(32, 32, 32), device=cuda)
+    x = torch.tensor(np.random.RandomState(0).randn(512, 6),
+                     dtype=torch.float32, device=cuda)
+    unfused = _adaptive_request(AdaptiveCNF(ode_nets.cnf_vf, 6), theta, x)
+    fused_cnf = AdaptiveCNF(ode_nets.cnf_vf, 6, fused_stages=True)
+    ops.reset_counts()
+    fused = _adaptive_request(fused_cnf, theta, x)
+    info = fused[2]
+    assert ops.plain_calls == 0
+    # the density's forward, then the score's forward and reverse sweep
+    assert ops.launches == tad.expected_adaptive_lincomb_calls(
+        info.n_accepted, info.n_rejected, 2, backward=False) \
+        + tad.expected_adaptive_lincomb_calls(info.n_accepted,
+                                              info.n_rejected, 2)
+    captured_cnf = AdaptiveCNF(ode_nets.cnf_vf, 6, fused_stages=True,
+                               capture=True)
+    captured = _adaptive_request(captured_cnf, theta, x)
+    assert unfused[2] == fused[2] == captured[2]
+    assert _same_bits(list(fused[:2]), list(unfused[:2]))
+    assert _same_bits(list(captured[:2]), list(fused[:2]))
+    graphs = captured_cnf.solver._graphs
+    assert set(graphs) == {"attempt", "attempt_record", "adjoint"}
+    assert all(g.graph is not None for g in graphs.values())
+    # replays on new points: the same bits as eager on them
+    x2 = torch.tensor(np.random.RandomState(1).randn(512, 6),
+                      dtype=torch.float32, device=cuda)
+    again = _adaptive_request(captured_cnf, theta, x2)
+    eager = _adaptive_request(fused_cnf, theta, x2)
+    assert again[2] == eager[2]
+    assert _same_bits(list(again[:2]), list(eager[:2]))
+
+
+def test_adaptive_cnf_one_point_requests_captured_bitwise(cuda):
+    """The engine's adaptive request, one point (6,) a solve: one captured
+    solver serves a stream of points, each with its own steps, bitwise
+    equal to an eager fused solve of the same point; the eager solve
+    launches the expected ``fused_lincomb`` count on its (6,) and 0-d
+    leaves."""
+    theta = ode_nets.cnf_vf_init(torch.Generator().manual_seed(0), 6,
+                                 hidden=(32, 32, 32), device=cuda)
+    xs = torch.tensor(np.random.RandomState(0).randn(3, 6),
+                      dtype=torch.float32, device=cuda)
+    eager_cnf = AdaptiveCNF(ode_nets.cnf_vf, 6, fused_stages=True)
+    captured_cnf = AdaptiveCNF(ode_nets.cnf_vf, 6, fused_stages=True,
+                               capture=True)
+    for i, x in enumerate(xs):
+        ops.reset_counts()
+        eager = _adaptive_request(eager_cnf, theta, x)
+        info = eager[2]
+        assert ops.plain_calls == 0
+        assert ops.launches == tad.expected_adaptive_lincomb_calls(
+            info.n_accepted, info.n_rejected, 2, backward=False) \
+            + tad.expected_adaptive_lincomb_calls(info.n_accepted,
+                                                  info.n_rejected, 2)
+        captured = _adaptive_request(captured_cnf, theta, x)
+        assert captured[2] == info, i
+        assert eager[0].shape == () and eager[1].shape == (6,)
+        assert _same_bits(list(captured[:2]), list(eager[:2])), i
+
+
+def _pulse_f(u, th, t):
+    return (torch.tanh(th["W"] @ u + th["b"]) - 0.2 * u
+            + 4.0 * torch.exp(-((t - 1.0) / 0.05) ** 2) * torch.tanh(u))
+
+
+def _pulse_inputs(device):
+    rs = np.random.RandomState(3)
+    u0 = torch.tensor(rs.randn(6), device=device, requires_grad=True)
+    th = {"W": torch.tensor(0.6 * rs.randn(6, 6), device=device,
+                            requires_grad=True),
+          "b": torch.tensor(0.1 * rs.randn(6), device=device,
+                            requires_grad=True)}
+    return u0, th
+
+
+@pytest.mark.parametrize("capture", [False, True])
+def test_adaptive_card_against_the_cpu_fp64(cuda, capture):
+    """The card's solve (fused, h0 large so it rejects) against the port
+    on the CPU: the same accepted/rejected counts, u_final and gradients
+    at the port-vs-JAX tolerance (rtol 1e-10 / atol 1e-12)."""
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        u0, th = _pulse_inputs(dev)
+        solver = tad.AdaptiveSolver(_pulse_f, t0=0.0, t1=2.0, rtol=1e-7,
+                                    atol=1e-7, h0=0.5, fused_stages=True,
+                                    capture=capture and dev.type == "cuda")
+        uf, info = solver(u0, th)
+        g = torch.autograd.grad((uf ** 2).sum(), [u0, th["W"], th["b"]])
+        out[dev.type] = (info, [uf.detach().cpu()] + [x.cpu() for x in g])
+    assert out["cuda"][0] == out["cpu"][0] and out["cpu"][0].n_rejected > 0
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["beuler", "cn"])
+def test_implicit_policies_bitwise_on_the_card_and_close_to_the_cpu(cuda,
+                                                                    method):
+    def f(u, th, t):
+        return torch.tanh(th["W"] @ u + th["b"]) - 0.5 * u
+
+    def grads(dev, policy, ncheck):
+        rs = np.random.RandomState(1)
+        u0 = torch.tensor(rs.randn(5), device=dev, requires_grad=True)
+        th = {"W": torch.tensor(0.5 * rs.randn(5, 5), device=dev,
+                                requires_grad=True),
+              "b": torch.tensor(0.1 * rs.randn(5), device=dev,
+                                requires_grad=True)}
+        uf, st = timp.odeint_implicit(f, u0, th, dt=0.2, n_steps=5,
+                                      method=method, adjoint=policy,
+                                      ncheck=ncheck, return_stats=True)
+        g = torch.autograd.grad((uf ** 2).sum(), [u0, th["W"], th["b"]])
+        return st, [uf.detach()] + list(g)
+
+    st, anchor = grads(cuda, "pnode", None)
+    assert anchor[0].device.type == "cuda" and not st.diverged
+    for policy, ncheck in (("revolve", 2), ("revolve2", 2)):
+        st_p, out = grads(cuda, policy, ncheck)
+        assert st_p == st
+        assert _same_bits(out, anchor), policy
+    st_cpu, cpu = grads(torch.device("cpu"), "pnode", None)
+    assert st_cpu.newton_iters == st.newton_iters
+    for a, b in zip(anchor, cpu):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-8,
+                                   atol=1e-10)
 
 
 def test_step_graph_refuses_on_the_card(cuda):

@@ -49,7 +49,7 @@ def _cfgs(arch):
 def _params(jcfg, seed=0):
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
     jp = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), jp)
-    return jp, convert.params_from_jax(jp)
+    return jp, convert.params_from_jax(jp, device="cpu")
 
 
 def _tokens(b, s, seed=0):

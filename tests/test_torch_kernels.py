@@ -126,7 +126,9 @@ def test_port_sources_import_no_jax_and_no_reference():
             "models/lm.py", "kernels/rwkv6_cases.py",
             "kernels/flash_cases.py",
             "serve/engine.py", "serve/queue.py", "launch/serve.py",
-            "configs/tinyllama_1_1b.py", "obs/sink.py"} <= names
+            "configs/tinyllama_1_1b.py", "obs/sink.py", "core/gmres.py",
+            "core/adaptive.py", "core/implicit.py",
+            "examples/stiff_robertson.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

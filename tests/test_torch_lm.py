@@ -75,7 +75,7 @@ def _cfgs(arch, **kw):
 def _params(jcfg, seed=0):
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
     jp = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), jp)
-    return jp, convert.params_from_jax(jp)
+    return jp, convert.params_from_jax(jp, device="cpu")
 
 
 def _tokens(b, s, vocab=256, seed=0):
@@ -153,7 +153,8 @@ def test_rmsnorm_layernorm_glu_match_jax():
                               "bias": torch.from_numpy(bias)},
                              torch.from_numpy(x)))
     jp = jlayers.glu_mlp_init(jax.random.PRNGKey(0), 64, 96)
-    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
     for act in ("silu", "gelu"):
         _close(jlayers.glu_mlp(jp, jnp.asarray(x), act),
                tlayers.glu_mlp(tp, torch.from_numpy(x), act))
@@ -227,7 +228,8 @@ def test_attention_chunked_blocks_and_window_skip(window):
 
 def test_attention_block_and_decode_block_match_jax():
     jp = jattn.init_attention(jax.random.PRNGKey(0), 64, 4, 2, 16)
-    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
     rs = np.random.RandomState(4)
     x = rs.randn(2, 10, 64).astype(np.float32)
     for window in (0, 4):

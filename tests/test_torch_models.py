@@ -144,7 +144,7 @@ def test_conv_vf_matches_jax(channels):
 
 def test_convert_roundtrip_and_conv_layout():
     th = _f64_np(jnets.classifier_init(jax.random.PRNGKey(0), channels=8))
-    t = convert.params_from_jax(th)
+    t = convert.params_from_jax(th, device="cpu")
     assert tuple(t["stem"]["w"].shape) == (8, 3, 3, 3)          # OIHW
     assert tuple(t["ode"]["conv1"]["w"].shape) == (8, 9, 3, 3)
     assert tuple(t["head"]["w"].shape) == (8, 10)               # (d_in, d_out)
@@ -153,6 +153,17 @@ def test_convert_roundtrip_and_conv_layout():
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_params_from_jax_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    """The weights' carrier defaults to the card, as every entry point
+    does: without one it raises, and it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    th = {"w": np.ones((2, 3)), "b": np.zeros(3)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_jax(th)
+    t = convert.params_from_jax(th, device="cpu")
+    assert t["w"].device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -285,10 +296,11 @@ def test_adamw_three_updates_match_jax():
             jp, js, jinfo = jopt.update(_jtree(g), js, jp)
         jp = jax.tree_util.tree_map(np.asarray, jp)
     topt = tadamw.AdamW(**kw)
-    tp = convert.params_from_jax(params)
+    tp = convert.params_from_jax(params, device="cpu")
     ts = topt.init(tp)
     for g in grads:
-        tp, ts, tinfo = topt.update(convert.params_from_jax(g), ts, tp)
+        tp, ts, tinfo = topt.update(convert.params_from_jax(g, device="cpu"),
+                                    ts, tp)
     assert ts.step == 3
     np.testing.assert_allclose(float(tinfo["grad_norm"]),
                                float(jinfo["grad_norm"]), rtol=1e-6)

@@ -208,7 +208,7 @@ D, HEADS = 64, 4
 def _tmix(seed=0, d=D, heads=HEADS):
     jp = jssm.init_rwkv6(jax.random.PRNGKey(seed), d, heads)
     jp = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), jp)
-    return jp, convert.params_from_jax(jp)
+    return jp, convert.params_from_jax(jp, device="cpu")
 
 
 def _x(b, s, seed=0, d=D):
@@ -314,7 +314,8 @@ def test_rwkv6_mix_chunked_from_a_state_runs_on_the_cpu():
 
 def test_rwkv_channel_mix_matches_jax():
     jp = jssm.init_rwkv_channel_mix(jax.random.PRNGKey(3), D, 96)
-    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
     x = _x(3, 17, seed=5)
     _normwise(ssm.rwkv_channel_mix(tp, torch.from_numpy(x)),
               jssm.rwkv_channel_mix(jp, jnp.asarray(x)), SEQ_TOL)
