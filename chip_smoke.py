@@ -104,11 +104,27 @@ Phases (any failure exits non-zero, before the last line is printed):
    on 256 points; the times.  Last the scaled form timed at the leaves
    of both;
 13. the stiff Robertson example (paper §5.3) through
-   ``repro_torch.examples.stiff_robertson.run``, fp64: the beuler truth
-   and 3 CN and 3 Dopri5 training epochs of ``mlp_vf`` from seed 0;
-   every CN solve converged, the pnode, revolve and revolve2 CN
-   gradients BITWISE equal on the card, and epoch 0's loss and gradient
-   against the port's CPU run of the same seed;
+   ``repro_torch.examples.stiff_robertson.run``, fp64, eager and
+   captured (one ``ImplicitSolver`` and one ``AdaptiveSolver`` an
+   interval, CUDA graphs replayed): the beuler truth and 3 CN and 3
+   Dopri5 training epochs of ``mlp_vf`` from seed 0; every CN solve
+   converged, captured BITWISE equal to eager (every epoch's losses,
+   epoch 0's gradients, the Newton iterations), no host read in a
+   captured CN solve but the ``live`` flag every 4 units and the stats
+   once, the pnode, revolve and revolve2 CN gradients BITWISE equal
+   under capture, one traced captured loss + gradient of each, and epoch
+   0's loss and gradient against the port's CPU run of the same seed;
+14. the stiff ensemble at the reference's width
+   (``benchmarks/stiff_ensemble.py:73-137``, its in-device half): 1,024
+   Robertson systems in fp64 on lanes (``ImplicitSolver(lanes=True)``),
+   per-lane log-multipliers from numpy's seed 0; the beuler truth, the
+   CN pnode gradient eager and captured (BITWISE equal), the
+   convergence audit at c_true (lane 164 of this sample diverges, as in
+   the JAX reference), 5 AdamW steps (no lane diverges, the loss falls),
+   a lane permutation (BITWISE permuted), 64 lanes solved alone (same
+   Newton iterations, states within 1e-12) and 64 against the port on
+   the CPU (rtol 1e-8 / atol 1e-10), with times, replays, host reads,
+   graph pools, one trace and the peak;
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
@@ -1698,66 +1714,155 @@ ROB_LOSS_RTOL = 1e-8     # card vs CPU, fp64 states (summation order)
 ROB_GRAD_TOL = 1e-5      # max|card - cpu| / max|cpu| per fp32 weight leaf
 
 
+def solver_counts(solvers):
+    """Units replayed, ``live`` reads and stats reads summed over the
+    ``ImplicitSolver``s of a loss (over their lives), and the captured
+    units' first-call costs."""
+    graphs = [g for s in solvers for g in s.graph_stats().values()]
+    return dict(replays=sum(s.replays for s in solvers),
+                live_reads=sum(s.live_reads for s in solvers),
+                stats_reads=sum(s.stats_reads for s in solvers),
+                graphs=len(graphs),
+                warmup_ms=sum(g[0] or 0.0 for g in graphs),
+                capture_ms=sum(g[1] or 0.0 for g in graphs),
+                pool_bytes=sum(g[2] or 0 for g in graphs))
+
+
 def robertson_phase(card, dev):
     """The port's example entry (``repro_torch.examples.stiff_robertson.
-    run``) on the card: the beuler truth, 3 CN epochs and 3 Dopri5 epochs
-    of ``mlp_vf`` (hidden 32, 3 hidden layers) from seed 0.  Every CN
-    solve converged; the pnode, revolve and revolve2 CN gradients at the
-    initial weights bitwise equal on the card; epoch 0's loss and
-    gradient against the port's CPU run of the same seed."""
+    run``) on the card, eager (``capture=False``) and captured: the beuler
+    truth, 3 CN epochs and 3 Dopri5 epochs of ``mlp_vf`` (hidden 32, 3
+    hidden layers) from seed 0.  Every CN solve converged; captured ==
+    eager bitwise (every epoch's loss, epoch 0's gradient); no host read
+    inside a captured solve but the ``live`` flag every ``CHECK_EVERY``
+    units and one stats read; the pnode, revolve and revolve2 CN gradients
+    at the initial weights bitwise equal under capture; one traced
+    captured epoch of each; epoch 0's loss and gradient against the
+    port's CPU run of the same seed."""
+    import numpy as np
     import torch
     from torch.utils import _pytree as pytree
+    from repro_torch.core.adaptive import CHECK_EVERY
     from repro_torch.examples import stiff_robertson as trob
 
-    lines = []
-    t0 = time.perf_counter()
-    out = trob.run(ROBERTSON_EPOCHS, device=dev, log=lines.append)
-    total_ms = (time.perf_counter() - t0) * 1e3
-    stats = out["cn_stats"]
-    check(len(stats) > 0 and not any(s.diverged for s in stats),
-          f"a CN solve diverged on the card: "
-          f"{[s for s in stats if s.diverged][:3]}")
-    for key in ("cn", "dopri5"):
-        r = out[key]
-        check(all(math.isfinite(v) for v in r["losses"] + r["gnorms"]),
-              f"Robertson {key}: non-finite loss or gradient norm")
-        print(f"Robertson {key}: losses "
-              + ", ".join(f"{v:.10f}" for v in r["losses"]) + "; |g| "
-              + ", ".join(f"{v:.6e}" for v in r["gnorms"]) + "; epoch ms "
-              + ", ".join(f"{v:.1f}" for v in r["ms"]) + f" {card}",
-              flush=True)
-    print(f"Robertson on the card: {len(stats)} CN solves over "
-          f"{ROBERTSON_EPOCHS} epochs, none diverged (max Newton residual "
-          f"{max(s.max_residual for s in stats):.3e}, Newton iterations "
-          f"{sum(s.newton_iters for s in stats)}); truth + training "
-          f"{total_ms:.1f} ms {card}", flush=True)
+    runs = {}
+    for capture in (False, True):
+        mode = "captured" if capture else "eager"
+        t0 = time.perf_counter()
+        out = trob.run(ROBERTSON_EPOCHS, device=dev, capture=capture,
+                       log=lambda *_: None)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        stats = out["cn_stats"]
+        check(len(stats) > 0 and not any(s.diverged for s in stats),
+              f"a CN solve diverged on the card ({mode}): "
+              f"{[s for s in stats if s.diverged][:3]}")
+        for key in ("cn", "dopri5"):
+            r = out[key]
+            check(all(math.isfinite(v) for v in r["losses"] + r["gnorms"]),
+                  f"Robertson {key} ({mode}): non-finite loss or gradient "
+                  "norm")
+            print(f"Robertson {key} {mode}: losses "
+                  + ", ".join(f"{v:.10f}" for v in r["losses"]) + "; |g| "
+                  + ", ".join(f"{v:.6e}" for v in r["gnorms"])
+                  + "; epoch ms "
+                  + ", ".join(f"{v:.1f}" for v in r["ms"]) + f" {card}",
+                  flush=True)
+        cn = solver_counts(out["losses"].cn_solvers)
+        dopri_graphs = [g for s in out["losses"].dopri_solvers
+                        for g in s.graph_stats().values()]
+        solves = len(stats)
+        newton = sum(s.newton_iters for s in stats)
+        dopri_replays = sum(s.replays for s in out["losses"].dopri_solvers)
+        print(f"Robertson {mode}: {solves} CN solves over "
+              f"{ROBERTSON_EPOCHS} epochs, none diverged (max Newton "
+              f"residual {max(s.max_residual for s in stats):.3e}, Newton "
+              f"iterations {newton}); truth + training {total_ms:.1f} ms "
+              f"{card}", flush=True)
+        if capture:
+            check(cn["live_reads"] * CHECK_EVERY == cn["replays"]
+                  and cn["stats_reads"] == solves,
+                  f"captured CN host reads: {cn}, {solves} solves")
+            print(f"Robertson captured CN: {cn['replays']} unit replays, "
+                  f"{cn['live_reads']} live reads (one every {CHECK_EVERY} "
+                  f"replays) + {cn['stats_reads']} stats reads over "
+                  f"{solves} solves (forward and reverse): "
+                  f"{cn['replays'] / solves:.2f} replays and "
+                  f"{(cn['live_reads'] + cn['stats_reads']) / solves:.2f} "
+                  f"host reads a solve, no other; {cn['graphs']} graphs "
+                  f"captured in epoch 0: warm-up {cn['warmup_ms']:.1f} ms, "
+                  f"capture {cn['capture_ms']:.1f} ms, pools "
+                  f"{cn['pool_bytes']} B; Dopri5: {len(dopri_graphs)} "
+                  f"graphs: warm-up "
+                  f"{sum(g[0] for g in dopri_graphs):.1f} ms, capture "
+                  f"{sum(g[1] for g in dopri_graphs):.1f} ms, pools "
+                  f"{sum(g[2] for g in dopri_graphs)} B; "
+                  f"{dopri_replays} attempt replays in the last epoch's loss "
+                  f"{card}", flush=True)
+        runs[mode] = dict(out=out, total_ms=total_ms, counts=cn,
+                          newton_iters=newton, solves=solves,
+                          dopri_replays=dopri_replays)
 
-    # the three CN checkpoint policies at the initial weights
-    y0, target = trob.scaled_data(out["truth"], dev)
+    # captured == eager, bitwise
+    eager, cap = runs["eager"]["out"], runs["captured"]["out"]
+    check(np.array_equal(eager["truth"], cap["truth"]),
+          "Robertson: the captured beuler truth != eager bitwise")
+    for key in ("cn", "dopri5"):
+        same = eager[key]["losses"] == cap[key]["losses"] and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(
+                pytree.tree_leaves(eager[key]["grads0"]),
+                pytree.tree_leaves(cap[key]["grads0"])))
+        check(same, f"Robertson {key}: captured != eager bitwise")
+    check([s.newton_iters for s in eager["cn_stats"]]
+          == [s.newton_iters for s in cap["cn_stats"]],
+          "Robertson CN: captured Newton iterations != eager")
+    print(f"Robertson captured == eager bitwise: the beuler truth, every "
+          f"epoch's CN and Dopri5 loss, epoch 0's gradients, every solve's "
+          f"Newton iterations; epoch ms CN eager "
+          + ", ".join(f"{v:.1f}" for v in eager["cn"]["ms"]) + " vs captured "
+          + ", ".join(f"{v:.1f}" for v in cap["cn"]["ms"]) + "; Dopri5 eager "
+          + ", ".join(f"{v:.1f}" for v in eager["dopri5"]["ms"])
+          + " vs captured "
+          + ", ".join(f"{v:.1f}" for v in cap["dopri5"]["ms"]) + f" {card}",
+          flush=True)
+
+    # the three CN checkpoint policies at the initial weights, captured
+    y0, target = trob.scaled_data(cap["truth"], dev)
     theta = trob.mlp_vf_init(torch.Generator().manual_seed(0), 3, hidden=32,
                              n_hidden=3, device=dev)
-    grads = {}
-    for policy, ncheck in (("pnode", None), ("revolve", 1), ("revolve2", 1)):
-        loss_cn, _ = trob.make_losses(y0, target, adjoint=policy,
-                                      ncheck=ncheck)
-        loss, g = trob.value_and_grad(loss_cn, theta)
-        grads[policy] = [loss] + pytree.tree_leaves(g)
     for policy in ("revolve", "revolve2"):
-        check(all(torch.equal(bits(a), bits(b)) for a, b in
-                  zip(grads[policy], grads["pnode"])),
-              f"Robertson CN {policy} gradient != pnode bitwise on the card")
-    check(float(grads["pnode"][0]) == out["cn"]["losses"][0],
-          "Robertson CN epoch-0 loss differs from the pnode recompute")
+        losses = trob.make_losses(y0, target, adjoint=policy, ncheck=1)
+        loss, g = trob.value_and_grad(losses.cn, theta)
+        anchor = pytree.tree_leaves(cap["cn"]["grads0"])
+        check(float(loss) == cap["cn"]["losses"][0] and all(
+            torch.equal(bits(a), bits(b))
+            for a, b in zip(pytree.tree_leaves(g), anchor)),
+              f"Robertson CN {policy} gradient != pnode bitwise under "
+              "capture")
     print("Robertson CN gradients: pnode == revolve == revolve2 bitwise on "
-          "the card (ncheck 1 of 2 steps a solve)", flush=True)
+          "the card, captured (ncheck 1 of 2 steps a solve)", flush=True)
+
+    # one traced captured epoch's losses (value and gradient)
+    traces = {}
+    for key, loss_fn in (("cn", cap["losses"].cn),
+                         ("dopri5", cap["losses"].dopri)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trob.value_and_grad(loss_fn, theta)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        traces[key] = traced(f"Robertson {key} loss + gradient, captured",
+                             lambda: trob.value_and_grad(loss_fn, theta),
+                             "lincomb", card, replayed=True)
+        traces[key]["untraced_wall_ms"] = wall
+        untraced_idle(traces[key], wall, f"Robertson {key}", card)
 
     # epoch 0 against the port on the CPU, same seed
-    cpu = trob.run(1, device="cpu", log=lambda *_: None)
+    cpu = trob.run(1, device="cpu", capture=False, log=lambda *_: None)
     errs = {}
     for key in ("cn", "dopri5"):
-        lc, lg = cpu[key]["losses"][0], out[key]["losses"][0]
+        lc, lg = cpu[key]["losses"][0], cap[key]["losses"][0]
         rel = max(max_abs(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
-                  for a, b in zip(pytree.tree_leaves(out[key]["grads0"]),
+                  for a, b in zip(pytree.tree_leaves(cap[key]["grads0"]),
                                   pytree.tree_leaves(cpu[key]["grads0"])))
         errs[key] = dict(loss_rel=abs(lg - lc) / abs(lc), grad_rel=rel)
         check(abs(lg - lc) <= ROB_LOSS_RTOL * abs(lc) and rel <= ROB_GRAD_TOL,
@@ -1769,15 +1874,282 @@ def robertson_phase(card, dev):
                       for k, v in errs.items())
           + f" (tolerance loss rtol {ROB_LOSS_RTOL}, grads {ROB_GRAD_TOL}, "
           f"fp64 states)", flush=True)
-    return dict(epochs=ROBERTSON_EPOCHS,
-                cn=dict(losses=out["cn"]["losses"], gnorms=out["cn"]["gnorms"],
-                        epoch_ms=out["cn"]["ms"]),
-                dopri5=dict(losses=out["dopri5"]["losses"],
-                            gnorms=out["dopri5"]["gnorms"],
-                            epoch_ms=out["dopri5"]["ms"]),
-                cn_solves=len(stats),
-                newton_iters=sum(s.newton_iters for s in stats),
-                total_ms=total_ms, cpu_agreement=errs)
+    return dict(
+        epochs=ROBERTSON_EPOCHS, check_every=CHECK_EVERY,
+        **{mode: dict(cn=dict(losses=r["out"]["cn"]["losses"],
+                              gnorms=r["out"]["cn"]["gnorms"],
+                              epoch_ms=r["out"]["cn"]["ms"]),
+                      dopri5=dict(losses=r["out"]["dopri5"]["losses"],
+                                  gnorms=r["out"]["dopri5"]["gnorms"],
+                                  epoch_ms=r["out"]["dopri5"]["ms"]),
+                      cn_solves=r["solves"], newton_iters=r["newton_iters"],
+                      cn_units=r["counts"],
+                      dopri5_replays=r["dopri_replays"],
+                      total_ms=r["total_ms"])
+           for mode, r in runs.items()},
+        traces=traces, cpu_agreement=errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the stiff ensemble, in-device (benchmarks/stiff_ensemble.py:73-137)
+# ---------------------------------------------------------------------------
+
+# the reference's kinetics, copied (benchmarks/ is not ported): Robertson
+# with per-system log-multipliers c on the three rates
+K_BASE = (0.04, 3.0e7, 1.0e4)
+LOSS_W = (1.0, 1.0e4, 1.0)   # undoes the ~1e-5 scale of u2
+ENSEMBLE = dict(batch=1024, n_steps=30, dt=0.01, train_steps=5, lr=0.05,
+                seed=0)
+ENS_SOLVER = dict(newton_iters=16, newton_tol=1e-10, gmres_iters=5,
+                  gmres_tol=1e-12)
+ENS_SOLO = 64              # lanes solved alone (B = 1) and against the CPU
+# the lanes of this sample whose Newton loop exhausts its 16 iterations at
+# c_true: the JAX reference flags the same lane (137 iterations, residual
+# 3.57e-5; tests/test_torch_implicit_lanes.py holds it against JAX)
+ENS_AUDIT_DIVERGED = [164]
+ENS_SOLO_RTOL = 1e-12      # a lane alone vs in the batch (reduction shapes)
+ENS_CPU_TOL = dict(rtol=1e-8, atol=1e-10)
+ENS_REPLAYS = 3            # captured gradients timed (median)
+
+
+def robertson_lanes(u, c, t):
+    """The ensemble's vector field on a lane axis: row i of u (B, 3) with
+    row i of the log-multipliers c (B, 3)."""
+    import torch
+    k1, k2, k3 = (b * torch.exp(c[:, i]) for i, b in enumerate(K_BASE))
+    du1 = -k1 * u[:, 0] + k3 * u[:, 1] * u[:, 2]
+    du3 = k2 * u[:, 1] ** 2
+    return torch.stack([du1, -du1 - du3, du3], dim=-1)
+
+
+def ensemble_vgrad(solver, u0, truth, w, scale):
+    """``value_and_grad`` of the ensemble's loss, sum over lanes of
+    ``sum((w * (u_final - truth))**2)`` over ``scale`` (the batch: the
+    reference's mean), w.r.t. the log-multipliers c."""
+    import torch
+
+    def vgrad(c):
+        c = c.detach().requires_grad_(True)
+        uf, stats = solver(u0, c)
+        loss = torch.sum((w * (uf - truth)) ** 2) / scale
+        g, = torch.autograd.grad(loss, [c])
+        return loss.detach(), g, uf.detach(), stats
+    return vgrad
+
+
+def ensemble_phase(card, dev):
+    """1,024 Robertson systems (fp64, per-lane log-multipliers c_true =
+    0.2 N(0, 1) from numpy's seed 0, u0 = [1, 0, 0]) through
+    ``ImplicitSolver(lanes=True)``: the beuler truth, then CN with pnode
+    on the device (Newton 16 at 1e-10, GMRES 5 cycles at 1e-12, 30 steps
+    of 0.01), as the reference's ``vgrad_dev``: the gradient eager and
+    captured (bitwise equal), the convergence audit at c_true (the lanes
+    that diverge are the reference's), 5 AdamW steps from c = 0 (no lane
+    diverges, the loss falls), a lane permutation (bitwise), 64 lanes
+    solved alone, and 64 lanes against the port on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.adaptive import CHECK_EVERY
+    from repro_torch.core.implicit import ImplicitSolver
+    from repro_torch.optim.adamw import AdamW
+
+    e = ENSEMBLE
+    B, n_steps, dt = e["batch"], e["n_steps"], e["dt"]
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    c_true_np = 0.2 * np.random.RandomState(e["seed"]).randn(B, 3)
+    c_true = torch.from_numpy(c_true_np).to(dev)
+    u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64,
+                      device=dev).repeat(B, 1)
+    w = torch.tensor(LOSS_W, dtype=torch.float64, device=dev)
+
+    def solver(method="cn", capture=True, **kw):
+        return ImplicitSolver(robertson_lanes, dt=dt, n_steps=n_steps,
+                              method=method, lanes=True, capture=capture,
+                              **ENS_SOLVER, **kw)
+
+    # -- the truth: beuler, captured, no gradient -------------------------------
+    with torch.no_grad():
+        truth, tstats = solver("beuler")(u0, c_true)
+    check(not bool(tstats.diverged.any()),
+          f"ensemble truth: {int(tstats.diverged.sum())} lanes diverged")
+
+    # -- the gradient, eager and captured ---------------------------------------
+    eager, cap = solver(capture=False), solver()
+    c0 = torch.zeros(B, 3, dtype=torch.float64, device=dev)
+    vg_eager = ensemble_vgrad(eager, u0, truth, w, B)
+    vg_cap = ensemble_vgrad(cap, u0, truth, w, B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_e = vg_eager(c0)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    eager_units, eager_reads = eager.replays, eager.live_reads
+    t0 = time.perf_counter()
+    res_c = vg_cap(c0)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    grad_ms = []
+    for _ in range(ENS_REPLAYS):
+        r0, l0 = cap.replays, cap.live_reads
+        t0 = time.perf_counter()
+        vg_cap(c0)
+        torch.cuda.synchronize()
+        grad_ms.append((time.perf_counter() - t0) * 1e3)
+    units, reads = cap.replays - r0, cap.live_reads - l0
+    check(reads * CHECK_EVERY == units and cap.stats_reads == 0,
+          f"ensemble captured host reads: {reads} live reads for {units} "
+          f"replays, {cap.stats_reads} stats reads")
+    same = all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(res_e[:3], res_c[:3])) and all(
+        torch.equal(a, b) for a, b in zip(res_e[3], res_c[3]))
+    check(same, "ensemble: captured gradient != eager bitwise")
+    loss0, g0, uf0, st0 = res_c
+    check(not bool(st0.diverged.any()),
+          f"ensemble CN at c = 0: {int(st0.diverged.sum())} lanes diverged")
+    check(g0.shape == (B, 3) and bool(torch.isfinite(g0).all()),
+          "ensemble gradient shape or finiteness")
+    iters = st0.newton_iters
+    print(f"stiff ensemble: {B} Robertson systems, fp64, CN pnode on the "
+          f"device, {n_steps} steps of {dt}: loss at c = 0 "
+          f"{float(loss0):.10e}; Newton iterations a solve sum "
+          f"{int(iters.sum())}, lane max {int(iters.max())}, lane min "
+          f"{int(iters.min())}; none diverged; captured == eager bitwise "
+          f"(loss, gradient, states, stats) {card}", flush=True)
+
+    # forward ms, eager and captured
+    fwd_ms = {}
+    for name, s in (("eager", eager), ("captured", cap)):
+        with torch.no_grad():
+            s(u0, c0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s(u0, c0)
+            torch.cuda.synchronize()
+        fwd_ms[name] = (time.perf_counter() - t0) * 1e3
+    gstats = cap.graph_stats()
+    med = float(np.median(grad_ms))
+    print(f"stiff ensemble times: forward eager {fwd_ms['eager']:.1f} ms, "
+          f"captured {fwd_ms['captured']:.1f} ms; gradient eager "
+          f"{eager_ms:.1f} ms, captured first call {first_ms:.1f} ms, then "
+          f"{med:.1f} ms (median of {ENS_REPLAYS}: "
+          + ", ".join(f"{v:.1f}" for v in grad_ms)
+          + f"); a gradient: {units} unit replays, {reads} live reads (one "
+          f"every {CHECK_EVERY}), 0 stats reads (eager: {eager_units} units, "
+          f"{eager_reads} reads, the first call); graphs "
+          + ", ".join(f"{k}: warm-up {wm:.1f} ms, capture {cm:.1f} ms, pool "
+                      f"{pb} B" for k, (wm, cm, pb) in gstats.items())
+          + f" {card}", flush=True)
+    trace = traced("stiff ensemble gradient, captured",
+                   lambda: vg_cap(c0), "lincomb", card, replayed=True)
+    untraced_idle(trace, med, "stiff ensemble gradient", card)
+
+    # -- the convergence audit at c_true ---------------------------------------
+    with torch.no_grad():
+        _, audit = cap(u0, c_true)
+    bad = torch.nonzero(audit.diverged).flatten().tolist()
+    ok = ~audit.diverged
+    a_iters = audit.newton_iters
+    print(f"stiff ensemble audit at c_true: {len(bad)} of {B} lanes "
+          f"diverged, lanes {bad} (Newton residual "
+          f"{audit.max_residual[bad].tolist()}, iterations "
+          f"{a_iters[bad].tolist()}); the others' max Newton residual "
+          f"{float(audit.max_residual[ok].max()):.3e}; Newton iterations a "
+          f"solve sum {int(a_iters.sum())}, lane max {int(a_iters.max())}, "
+          f"lane min {int(a_iters.min())}", flush=True)
+    check(bad == ENS_AUDIT_DIVERGED,
+          f"ensemble audit at c_true: lanes {bad} diverged, the reference's "
+          f"are {ENS_AUDIT_DIVERGED}")
+
+    # -- training: 5 AdamW steps from c = 0 -------------------------------------
+    opt = AdamW(lr=e["lr"], weight_decay=0.0, warmup_steps=1,
+                total_steps=max(e["train_steps"], 2))
+    state, c, losses = opt.init(c0), c0, []
+    for _ in range(e["train_steps"]):
+        val, g, _, st = vg_cap(c)
+        check(not bool(st.diverged.any()), "ensemble training: a lane "
+              "diverged")
+        losses.append(float(val))
+        with torch.no_grad():
+            c, state, _ = opt.update(g, state, c)
+    losses.append(float(vg_cap(c)[0]))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"ensemble training: the loss did not fall: {losses}")
+    print("stiff ensemble training, AdamW lr 0.05, 5 steps: losses "
+          + ", ".join(f"{v:.10e}" for v in losses), flush=True)
+
+    # -- lane independence: a permutation, bitwise -------------------------------
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(1))
+    perm = perm.to(dev)
+    vg_perm = ensemble_vgrad(cap, u0, truth[perm], w, B)
+    _, gp, ufp, stp = vg_perm(c_true[perm])
+    _, gq, ufq, stq = vg_cap(c_true)
+    check(torch.equal(bits(gp), bits(gq[perm]))
+          and torch.equal(bits(ufp), bits(ufq[perm]))
+          and torch.equal(stp.newton_iters, stq.newton_iters[perm]),
+          "ensemble: a lane permutation does not permute the results "
+          "bitwise")
+    print("stiff ensemble lane permutation (at c_true): states, gradient "
+          "rows and Newton iterations permuted bitwise", flush=True)
+
+    # -- 64 lanes alone (B = 1) ---------------------------------------------------
+    solo = solver()
+    worst, same_iters = 0.0, True
+    with torch.no_grad():
+        for i in range(ENS_SOLO):
+            uf1, st1 = solo(u0[i:i + 1], c_true[i:i + 1])
+            worst = max(worst, float(((uf1[0] - ufq[i]).abs()
+                                      / ufq[i].abs().clamp_min(1e-300))
+                                     .max()))
+            same_iters &= int(st1.newton_iters[0]) == int(
+                stq.newton_iters[i])
+    check(same_iters and worst <= ENS_SOLO_RTOL,
+          f"ensemble: lanes alone differ from the batch (Newton iterations "
+          f"equal: {same_iters}, worst relative state difference {worst})")
+    print(f"stiff ensemble: {ENS_SOLO} lanes solved alone (B = 1) take the "
+          f"batch's Newton iterations, states within {worst:.3e} relative "
+          f"(limit {ENS_SOLO_RTOL})", flush=True)
+
+    # -- 64 lanes and the audit's diverged ones against the port on the CPU -----
+    sl = torch.tensor(list(range(ENS_SOLO)) + bad, device=dev)
+    cpu_solver = ImplicitSolver(robertson_lanes, dt=dt, n_steps=n_steps,
+                                method="cn", lanes=True, **ENS_SOLVER)
+    vg_cpu = ensemble_vgrad(cpu_solver, u0[sl].cpu(), truth[sl].cpu(),
+                            w.cpu(), B)
+    _, g_c, uf_c, st_c = vg_cpu(c_true[sl].cpu())
+    err_u = max_abs(ufq[sl].cpu(), uf_c)
+    err_g = max_abs(gq[sl].cpu(), g_c)
+    check(torch.allclose(ufq[sl].cpu(), uf_c, **ENS_CPU_TOL)
+          and torch.allclose(gq[sl].cpu(), g_c, **ENS_CPU_TOL)
+          and torch.equal(st_c.newton_iters, stq.newton_iters[sl].cpu())
+          and torch.equal(st_c.diverged, stq.diverged[sl].cpu()),
+          f"ensemble card vs CPU on {len(sl)} lanes: states {err_u}, "
+          f"gradient {err_g}")
+    peak = torch.cuda.max_memory_allocated() - before
+    print(f"stiff ensemble, card vs the port on the CPU on lanes 0-"
+          f"{ENS_SOLO - 1} and {bad} at c_true: same Newton iterations and "
+          f"diverged flags, max|diff| states "
+          f"{err_u:.3e}, gradient {err_g:.3e} (tolerance {ENS_CPU_TOL}); "
+          f"peak allocated above the phase's start {peak} B {card}",
+          flush=True)
+    return dict(batch=B, n_steps=n_steps, dt=dt, loss0=float(loss0),
+                newton_iters=dict(sum=int(iters.sum()),
+                                  lane_max=int(iters.max()),
+                                  lane_min=int(iters.min())),
+                forward_ms=fwd_ms, grad_eager_ms=eager_ms,
+                grad_first_ms=first_ms, grad_ms=grad_ms,
+                units=units, live_reads=reads, check_every=CHECK_EVERY,
+                eager_units=eager_units, eager_reads=eager_reads,
+                graphs={k: dict(warmup_ms=wm, capture_ms=cm, pool_bytes=pb)
+                        for k, (wm, cm, pb) in gstats.items()},
+                audit_diverged_lanes=bad,
+                audit_newton_iters=dict(sum=int(a_iters.sum()),
+                                        lane_max=int(a_iters.max()),
+                                        lane_min=int(a_iters.min())),
+                trace=trace, losses=losses, solo_worst_rel=worst,
+                cpu_max_abs=dict(states=err_u, gradient=err_g),
+                peak_bytes=peak)
 
 
 def gc_collect():
@@ -2060,6 +2432,10 @@ def main():
     robertson = robertson_phase(card, dev)
     lap("13 Robertson")
 
+    # -- phase 14: the stiff ensemble, in-device -------------------------------
+    ensemble = ensemble_phase(card, dev)
+    lap("14 stiff ensemble")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -2094,6 +2470,7 @@ def main():
         "adaptive_request": adaptive_point,
         "adaptive_batched": adaptive,
         "robertson": robertson,
+        "stiff_ensemble": ensemble,
         "card": smi,
     }, {
         "name": "flash_attention",

@@ -90,10 +90,33 @@ def _validate_ncheck(adjoint: str, ncheck, n_steps: int) -> int:
 _FUSED_POLICIES = ("pnode", "pnode2", "revolve", "revolve2")
 
 
+def not_ported(entry: str, what: str, item: str | int,
+               name: str) -> NotImplementedError:
+    """The refusal of an option whose module is not ported yet, naming its
+    ROADMAP Queue 1 item."""
+    return NotImplementedError(
+        f"{entry}: {what} is not ported yet: ROADMAP Queue 1 item {item} "
+        f"({name})")
+
+
+#: checkpoint tiers of the JAX package's ``offload=``; the port keeps its
+#: checkpoints on the device (None or "device")
+OFFLOAD_TIERS = (None, "device", "host", "spill", "disk")
+
+
 def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
            n_steps: int, t0: float = 0.0, method: str = "rk4",
            adjoint: str = "pnode", ncheck: int | None = None,
-           fused_stages: bool = False) -> PyTree:
+           offload: str | None = None, offload_segment: int | None = None,
+           snaps_in_ram: int | None = None,
+           offload_dir: str | None = None,
+           offload_store=None,
+           mem_budget: int | None = None,
+           ram_budget: int | None = None,
+           disk_budget: int | None = None,
+           mem_verify: str = "measure",
+           fused_stages: bool = False,
+           obs=None) -> PyTree:
     """Fixed-step ODE solve, differentiable with the selected adjoint policy.
 
     ``fused_stages=True`` makes the RK stage-update chain (forward) and the
@@ -104,19 +127,44 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
     (pnode/pnode2/revolve/revolve2) support it — the low-level-AD policies
     differentiate through the step graph and the kernel has no autograd
     rule.
+
+    The signature is the JAX package's.  Checkpoints live on the device
+    (``offload=None`` or ``"device"``); the memory planner
+    (``adjoint="auto"``, ``mem_budget``, ``ram_budget``, ``disk_budget``,
+    ``mem_verify``: ROADMAP Queue 1 item 9), the other offload tiers and
+    their knobs (``offload``, ``offload_segment``, ``snaps_in_ram``,
+    ``offload_dir``, ``offload_store``: item 10) and the flight recorder
+    (``obs``: item 11) raise ``NotImplementedError``.
     """
     n_steps = int(n_steps)
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if (adjoint == "auto" or mem_budget is not None or ram_budget is not None
+            or disk_budget is not None or mem_verify != "measure"):
+        raise not_ported("odeint", "adjoint='auto' / mem_budget= / "
+                         "ram_budget= / disk_budget= / mem_verify=", 9,
+                         "the memory planner")
     if adjoint not in POLICIES:
         raise ValueError(f"unknown adjoint policy {adjoint!r}; one of "
                          f"{POLICIES}")
+    if offload not in OFFLOAD_TIERS:
+        raise ValueError(f"unknown offload tier {offload!r}; one of "
+                         f"{OFFLOAD_TIERS}")
     if fused_stages and adjoint not in _FUSED_POLICIES:
         raise ValueError(
             f"fused_stages=True is not supported for "
             f"adjoint={adjoint!r}: that policy differentiates through "
             "the step graph and the fused stage kernel has no autograd "
             f"rule; use one of {_FUSED_POLICIES}")
+    if offload not in (None, "device") or offload_segment is not None \
+            or snaps_in_ram is not None or offload_dir is not None \
+            or offload_store is not None:
+        raise not_ported("odeint", "offload to the host/spill/disk tiers "
+                         "(offload, offload_segment, snaps_in_ram, "
+                         "offload_dir, offload_store)", 10,
+                         "the offload tiers")
+    if obs is not None:
+        raise not_ported("odeint", "obs=", 11, "the flight recorder")
     fused = bool(fused_stages)
     t0, dt = float(t0), float(dt)
     if adjoint == "naive":
@@ -501,6 +549,7 @@ def odeint_with_quadrature(f: VectorField, q, u0: PyTree, theta: PyTree, *,
                            dt: float, n_steps: int, t0: float = 0.0,
                            method: str = "rk4", adjoint: str = "pnode",
                            ncheck: int | None = None,
+                           offload: str | None = None,
                            fused_stages: bool = False):
     """Integrate du/dt = f AND the loss quadrature dQ/dt = q(u, theta, t)
     jointly (eq. 2's integral term: running costs / Tikhonov / kinetic
@@ -509,7 +558,8 @@ def odeint_with_quadrature(f: VectorField, q, u0: PyTree, theta: PyTree, *,
     The augmented system is just another vector field, so every adjoint
     policy — including revolve checkpointing — applies unchanged, and the
     gradient of any function of (u_final, Q) is reverse-accurate.  Q starts
-    as a 0-dim zero of u0's (first leaf's) dtype and device."""
+    as a 0-dim zero of u0's (first leaf's) dtype and device.  ``offload``
+    is ``odeint``'s."""
     def aug(state, th, t):
         u, _ = state
         return (f(u, th, t), q(u, th, t))
@@ -518,5 +568,5 @@ def odeint_with_quadrature(f: VectorField, q, u0: PyTree, theta: PyTree, *,
     q0 = torch.zeros((), dtype=ref.dtype, device=ref.device)
     u_final, Q = odeint(aug, (u0, q0), theta, dt=dt, n_steps=n_steps, t0=t0,
                         method=method, adjoint=adjoint, ncheck=ncheck,
-                        fused_stages=fused_stages)
+                        offload=offload, fused_stages=fused_stages)
     return u_final, Q

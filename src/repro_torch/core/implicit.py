@@ -38,18 +38,27 @@ the same order), so the three policies give bitwise equal gradients on one
 device.  ``adjoint="naive"`` is impossible by construction: Newton/GMRES
 have no reverse rule — the paper's motivating limitation.
 
-The Newton and GMRES exits are read on the host, one device-to-host read
-per iteration, so a solve runs eagerly (it is not captured as a CUDA
-graph).  ``odeint_implicit(..., return_stats=True)`` returns
-``(u_final, ImplicitStats)``: ``diverged`` is True if any step exhausted
+``ImplicitSolver`` runs a solve in one of two forms.  The eager route
+(``capture=False, lanes=False``; what ``odeint_implicit`` builds) reads
+the Newton and GMRES exits on the host, one device-to-host read per
+iteration.  The masked form writes every exit as a per-lane device mask
+and freezes a finished iterate with ``torch.where``: the solve becomes a
+sequence of units (one GMRES cycle each) that read nothing on the host, so
+each unit can be captured as a CUDA graph (``capture=True``), and a lane
+axis gives each of B independent systems its own Newton and GMRES loops
+(``lanes=True``, the port's counterpart of ``jax.vmap(odeint_implicit)``).
+The host reads one 0-d ``live`` flag every ``CHECK_EVERY`` units.  On one
+lane the masked form is bitwise the eager route.
+``odeint_implicit(..., return_stats=True)`` returns ``(u_final,
+ImplicitStats)``: ``diverged`` is True if any step exhausted
 ``newton_iters`` with residual > ``newton_tol``.
 
 Not ported (they raise ``NotImplementedError``): the host/spill/disk
 checkpoint tiers and their knobs (``offload``, ``offload_segment``,
 ``snaps_in_ram``, ``offload_dir``, ``resilient``; ROADMAP Queue 1
-item 10), the memory planner (``adjoint="auto"``, ``mem_budget``; item 9)
-and the flight recorder and fault injection (``obs``, ``fault_plan``;
-item 11).
+item 10), the memory planner (``adjoint="auto"``, ``mem_budget``; item 9),
+the flight recorder and fault injection (``obs``, ``fault_plan``;
+item 11), and ``rescue=``/``mass=`` in the masked form (item 7c).
 """
 from __future__ import annotations
 
@@ -60,8 +69,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import revolve as revolve_mod
-from repro_torch.core.adjoint import _validate_ncheck
-from repro_torch.core.gmres import gmres
+from repro_torch.core.adaptive import CHECK_EVERY
+from repro_torch.core.adjoint import (OFFLOAD_TIERS, _validate_ncheck,
+                                      not_ported)
+from repro_torch.core.gmres import GmresCarry, gmres
+from repro_torch.core.gmres import _norm as _lane_norm
 from repro_torch.core.integrators import (
     PyTree,
     VectorField,
@@ -73,10 +85,10 @@ from repro_torch.core.integrators import (
     tree_sub,
     tree_zeros_like,
 )
+from repro_torch.launch.graphs import StepGraph
 
 IMPLICIT_METHODS = ("beuler", "cn")
 IMPLICIT_POLICIES = ("pnode", "revolve", "revolve2")
-_OFFLOAD_TIERS = (None, "device", "host", "spill", "disk")
 
 
 def _mass_apply(mass):
@@ -362,10 +374,16 @@ def implicit_checkpoint_floats(n_steps: int, adjoint: str, state_size: int,
 # public API
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"odeint_implicit: {what} is not ported yet: ROADMAP Queue 1 item "
-        f"{item} ({name}); checkpoints live on the device")
+def _not_ported(what: str, item, name: str) -> NotImplementedError:
+    return not_ported("odeint_implicit", what, item, name)
+
+
+def _mass_refusal() -> ValueError:
+    return ValueError(
+        "mass-matrix solves support only the default dense path "
+        "(adjoint='pnode', no offload/mem_budget and no rescue/resilient): "
+        "the mass operator is closed over statically and the solve is "
+        "forward-only")
 
 
 def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
@@ -393,44 +411,22 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
     caps, then optionally as two half steps; ``stats.rescued`` counts the
     rescued steps.  ``mass=`` (a matrix or a callable) solves
     M u' = f, forward only.  ``t0``/``dt`` are Python floats; step n starts
-    at ``t0 + dt * n``.  The module docstring lists the options that are
-    not ported."""
-    n_steps = int(n_steps)
-    if n_steps < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    theta = _theta_of(method)
+    at ``t0 + dt * n``.  One eager solve (an ``ImplicitSolver`` with
+    ``capture=False, lanes=False``); a caller that solves again and again
+    keeps an ``ImplicitSolver``.  The module docstring lists the options
+    that are not ported."""
     if obs is not None or fault_plan is not None:
         raise _not_ported("obs= / fault_plan=", 11,
                           "the flight recorder and fault injection")
-    if mass is not None:
-        if (adjoint != "pnode" or offload is not None
-                or mem_budget is not None or rescue is not None
-                or resilient):
-            raise ValueError(
-                "mass-matrix solves support only the default dense path "
-                "(adjoint='pnode', no offload/mem_budget and no "
-                "rescue/resilient): the mass operator is closed over "
-                "statically and the solve is forward-only")
-        return _odeint_implicit_mass(f, mass, float(t0), float(dt), n_steps,
-                                     theta, int(newton_iters),
-                                     float(newton_tol), int(gmres_iters),
-                                     float(gmres_tol), u0, theta_p,
-                                     return_stats)
-    if adjoint == "auto" or mem_budget is not None:
-        raise _not_ported("adjoint='auto' / mem_budget=", 9,
+    if mass is not None and (offload is not None or mem_budget is not None
+                             or resilient):
+        raise _mass_refusal()
+    if adjoint == "auto" or mem_budget is not None or mem_verify != "measure":
+        raise _not_ported("adjoint='auto' / mem_budget= / mem_verify=", 9,
                           "the memory planner")
-    if adjoint == "naive":
-        raise ValueError(
-            "adjoint='naive' (AD through the solver) is impossible for "
-            "implicit methods: Newton/GMRES have no reverse rule — the "
-            "paper's motivating limitation; use one of "
-            f"{IMPLICIT_POLICIES}")
-    if adjoint not in IMPLICIT_POLICIES:
-        raise ValueError(f"unknown implicit adjoint policy {adjoint!r}; one "
-                         f"of {IMPLICIT_POLICIES}")
-    if offload not in _OFFLOAD_TIERS:
+    if offload not in OFFLOAD_TIERS:
         raise ValueError(f"unknown offload tier {offload!r}; one of "
-                         f"{_OFFLOAD_TIERS}")
+                         f"{OFFLOAD_TIERS}")
     if offload not in (None, "device") or offload_segment is not None \
             or snaps_in_ram is not None or offload_dir is not None \
             or resilient:
@@ -438,17 +434,11 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
             "offload to the host/spill/disk tiers (offload, "
             "offload_segment, snaps_in_ram, offload_dir, resilient)", 10,
             "the offload tiers")
-    if rescue is True:
-        rescue = RescueConfig()
-    if rescue is not None and not isinstance(rescue, RescueConfig):
-        raise ValueError(f"rescue must be a RescueConfig, True, or None; "
-                         f"got {rescue!r}")
-    if adjoint in ("revolve", "revolve2"):
-        ncheck = _validate_ncheck(adjoint, ncheck, n_steps)
-    cfg = _SolverConfig(theta, int(newton_iters), float(newton_tol),
-                        int(gmres_iters), float(gmres_tol), rescue=rescue)
-    solver = _ImplicitSolver(f, cfg, float(t0), float(dt), n_steps, adjoint,
-                             ncheck)
+    solver = ImplicitSolver(f, dt=dt, n_steps=n_steps, t0=t0, method=method,
+                            adjoint=adjoint, ncheck=ncheck,
+                            newton_iters=newton_iters, newton_tol=newton_tol,
+                            gmres_iters=gmres_iters, gmres_tol=gmres_tol,
+                            mass=mass, rescue=rescue)
     u_final, stats = solver(u0, theta_p)
     return (u_final, stats) if return_stats else u_final
 
@@ -458,8 +448,7 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
 # ---------------------------------------------------------------------------
 
 def _odeint_implicit_mass(f, mass, t0, dt, n_steps, theta, newton_iters,
-                          newton_tol, gmres_iters, gmres_tol, u0, theta_p,
-                          return_stats):
+                          newton_tol, gmres_iters, gmres_tol, u0, theta_p):
     """Mass-matrix path: the mass operator is closed over statically and
     the solve has no adjoint, so it refuses inputs that require a
     gradient."""
@@ -475,11 +464,12 @@ def _odeint_implicit_mass(f, mass, t0, dt, n_steps, theta, newton_iters,
                                     newton_iters, newton_tol, gmres_iters,
                                     gmres_tol, mass=mass)
             stats = _stats_merge(stats, info)
-    return (u, stats) if return_stats else u
+    return u, stats
 
 
 # ---------------------------------------------------------------------------
-# the checkpoint policies: one autograd.Function over the flattened leaves
+# the solver: checkpoint policies over one autograd Function, run eagerly or
+# as masked units (captured, and on a lane axis)
 # ---------------------------------------------------------------------------
 
 def _segment_bounds(n_steps: int, ncheck: int):
@@ -487,53 +477,276 @@ def _segment_bounds(n_steps: int, ncheck: int):
     return list(zip(positions, positions[1:] + [n_steps]))
 
 
-class _ImplicitSolver:
-    """Binds one policy's forward and reverse sweeps to the autograd
-    Function."""
+class _Layout:
+    """A state pytree as a (B, n) block of lanes and back.  With lanes,
+    every leaf has the leading lane axis B; without, B = 1 and the leaves
+    are flattened as ``gmres`` flattens them."""
 
-    def __init__(self, f, cfg, t0, dt, n_steps, policy, ncheck):
-        self.f, self.cfg, self.t0, self.dt = f, cfg, t0, dt
-        self.n_steps, self.policy, self.ncheck = n_steps, policy, ncheck
+    def __init__(self, leaves, spec, lanes: bool):
+        self.spec, self.lanes = spec, lanes
+        self.B = leaves[0].shape[0] if lanes else 1
+        self.shapes = [tuple(x.shape[1:]) if lanes else tuple(x.shape)
+                       for x in leaves]
+        self.sizes = [math.prod(s) for s in self.shapes]
+        self.n = sum(self.sizes)
 
-    def __call__(self, u0, theta_p):
-        u_leaves, self.u_spec = pytree.tree_flatten(u0)
-        th_leaves, self.th_spec = pytree.tree_flatten(theta_p)
-        self.n_u = len(u_leaves)
-        if not (torch.is_grad_enabled() and any(
-                torch.is_tensor(x) and x.requires_grad
-                for x in u_leaves + th_leaves)):
-            # nothing to differentiate: the plain solve, no checkpoints
-            with torch.no_grad():
-                u_final, stats, _ = self._advance(u0, theta_p, 0, self.n_steps,
-                                                  _stats_zero())
-            return u_final, stats
-        box: list = []
-        out = _ImplicitFunction.apply(self, box, *u_leaves, *th_leaves)
-        return pytree.tree_unflatten(list(out), self.u_spec), box[0]
+    def flat(self, tree) -> torch.Tensor:
+        return torch.cat([x.reshape(self.B, -1)
+                          for x in pytree.tree_leaves(tree)], dim=1)
 
-    def unflatten(self, leaves):
-        return (pytree.tree_unflatten(list(leaves[:self.n_u]), self.u_spec),
-                pytree.tree_unflatten(list(leaves[self.n_u:]), self.th_spec))
+    def unflat(self, v: torch.Tensor):
+        if self.lanes:
+            parts = [p.reshape((self.B,) + s) for p, s in
+                     zip(torch.split(v, self.sizes, dim=1), self.shapes)]
+        else:
+            parts = [p.view(s) for p, s in
+                     zip(torch.split(v[0], self.sizes), self.shapes)]
+        return pytree.tree_unflatten(parts, self.spec)
 
-    def _t(self, n: int) -> float:
+    def norm(self, tree) -> torch.Tensor:
+        """Per-lane 2-norm (B,); without lanes ``tree_norm``, as the eager
+        Newton loop takes it."""
+        if self.lanes:
+            return _lane_norm(self.flat(tree))
+        return tree_norm(tree).reshape(1)
+
+
+class ImplicitSolver:
+    """The implicit theta-method solve for one vector field, with its
+    buffers (and, with ``capture=True``, its CUDA graphs) kept across
+    calls.  ``solver(u0, theta)`` returns ``(u_final, ImplicitStats)`` and
+    is differentiable w.r.t. the tensor leaves of ``u0`` and ``theta``
+    through the discrete adjoint of the chosen policy (``pnode``,
+    ``revolve``, ``revolve2``).  The other arguments are
+    ``odeint_implicit``'s.
+
+    ``capture=False, lanes=False`` is the eager route: Newton's and
+    GMRES's exits are read on the host at every iteration.  Otherwise the
+    solve runs as masked units in static buffers.  A unit is one GMRES
+    cycle (``core/gmres.py::GmresCarry``); a lane whose GMRES exits in it
+    also takes the Newton update and its exit residual and, if its Newton
+    loop goes on, starts its next residual and GMRES.  A step begins with
+    one start unit (f(u_n), the predictor and the first residual).  The
+    reverse sweep has the same form: a start unit, transposed-GMRES cycles,
+    and a finish unit (lambda_n and the theta increment).  The host reads
+    one 0-d ``live`` flag every ``CHECK_EVERY`` units and nothing else
+    during a solve; the stats are accumulated on the device and read once
+    a solve.  ``capture=True`` captures each unit as a CUDA graph
+    (``launch.graphs.StepGraph``) and replays it; on CPU tensors it runs
+    the same functions eagerly.  A masked solve is bitwise the eager
+    route's on one device (the same operations in the same order; a
+    finished lane is frozen by ``torch.where``).  ``f`` receives ``t`` as
+    a 0-d float64 tensor on the state's device there, a Python float on
+    the eager route.
+
+    ``lanes=True`` is the port's counterpart of
+    ``jax.vmap(odeint_implicit)``: every leaf of ``u0`` carries a leading
+    lane axis B, and ``f`` is lane-separable (row i of ``f(u, theta, t)``
+    depends only on row i of ``u`` and on lane i of ``theta``, or on a
+    shared ``theta``).  Each lane has its own Newton and GMRES loops and
+    exits, as ``jax.vmap`` of the reference's ``while_loop``s gives them;
+    the lanes share a step, as under ``vmap`` of its ``scan``.
+    ``ImplicitStats`` then holds per-lane tensors (B,), which are not read
+    on the host.  Gradients come out per lane for per-lane ``theta``
+    leaves and summed over lanes for a shared one.  ``torch.func.vmap``
+    cannot map a data-dependent loop, hence the explicit lane axis.
+
+    Every call copies ``theta`` into the static buffers: u0 and theta must
+    keep their structure, shapes, dtypes and device across calls.  With
+    the masked units the buffers hold the last call, so the reverse sweep
+    of a call that was followed by another call raises; keep one solver
+    per call site of a loss.  ``rescue=`` and ``mass=`` run only on the
+    eager route (ROADMAP Queue 1 item 7c).
+    """
+
+    def __init__(self, f: VectorField, *, dt: float, n_steps: int,
+                 t0: float = 0.0, method: str = "cn",
+                 adjoint: str = "pnode", ncheck: int | None = None,
+                 newton_iters: int = 10, newton_tol: float = 1e-9,
+                 gmres_iters: int = 20, gmres_tol: float = 1e-10,
+                 mass=None, rescue=None, capture: bool = False,
+                 lanes: bool = False):
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        theta = _theta_of(method)
+        if mass is not None and (adjoint != "pnode" or rescue is not None):
+            raise _mass_refusal()
+        if adjoint == "naive":
+            raise ValueError(
+                "adjoint='naive' (AD through the solver) is impossible for "
+                "implicit methods: Newton/GMRES have no reverse rule — the "
+                "paper's motivating limitation; use one of "
+                f"{IMPLICIT_POLICIES}")
+        if adjoint not in IMPLICIT_POLICIES:
+            raise ValueError(f"unknown implicit adjoint policy {adjoint!r}; "
+                             f"one of {IMPLICIT_POLICIES}")
+        if rescue is True:
+            rescue = RescueConfig()
+        if rescue is not None and not isinstance(rescue, RescueConfig):
+            raise ValueError(f"rescue must be a RescueConfig, True, or None; "
+                             f"got {rescue!r}")
+        self.masked = bool(capture) or bool(lanes)
+        if self.masked and (rescue is not None or mass is not None):
+            raise not_ported(
+                "ImplicitSolver", "rescue= / mass= with lanes=True or "
+                "capture=True", "7c", "the masked Newton loop's rescue "
+                "retries and mass matrix")
+        if adjoint in ("revolve", "revolve2"):
+            ncheck = _validate_ncheck(adjoint, ncheck, n_steps)
+        self.f = f
+        self.cfg = _SolverConfig(theta, int(newton_iters), float(newton_tol),
+                                 int(gmres_iters), float(gmres_tol),
+                                 rescue=rescue)
+        self.t0, self.dt = float(t0), float(dt)
+        self.n_steps, self.policy, self.ncheck = n_steps, adjoint, ncheck
+        self.mass = mass
+        self.capture, self.lanes = bool(capture), bool(lanes)
+        self._layout = None
+        self._graphs: dict = {}
+        #: bumped by every forward pass of the masked units
+        self.generation = 0
+        #: units replayed (or run, when not captured) and ``live`` reads,
+        #: over the solver's life; the caller takes differences
+        self.replays = 0
+        self.live_reads = 0
+        self.stats_reads = 0
+
+    # -- arguments -------------------------------------------------------------
+    def _bind(self, u_leaves, th_leaves, u_spec, th_spec) -> None:
+        layout = (u_spec, th_spec,
+                  [(x.shape, x.dtype, x.device) for x in u_leaves],
+                  [(getattr(x, "shape", None), getattr(x, "dtype", None),
+                    getattr(x, "device", None)) for x in th_leaves])
+        if self._layout is not None:
+            if layout != self._layout:
+                raise ValueError(
+                    "ImplicitSolver: u0/theta differ in structure, shape, "
+                    "dtype or device from the first call; build a new "
+                    "solver for them")
+            return
+        self._layout = layout
+        self.u_spec, self.th_spec, self.n_u = u_spec, th_spec, len(u_leaves)
+        if not self.masked:
+            return
+        if not all(torch.is_tensor(x) for x in u_leaves + th_leaves):
+            raise TypeError("ImplicitSolver: with capture=True or lanes=True "
+                            "every leaf of u0 and theta must be a tensor")
+        devices = {x.device for x in u_leaves + th_leaves}
+        if len(devices) != 1:
+            raise ValueError("ImplicitSolver: u0 and theta must lie on one "
+                             f"device, got {sorted(map(str, devices))}")
+        dtypes = {x.dtype for x in u_leaves}
+        if len(dtypes) != 1:
+            raise ValueError("ImplicitSolver: the leaves of u0 must share "
+                             f"one dtype, got {sorted(map(str, dtypes))}")
+        if self.lanes and (any(x.dim() == 0 for x in u_leaves)
+                           or len({x.shape[0] for x in u_leaves}) != 1):
+            raise ValueError("ImplicitSolver(lanes=True): every leaf of u0 "
+                             "needs the same leading lane axis")
+        self._alloc(u_leaves, th_leaves, devices.pop())
+
+    def _alloc(self, u_leaves, th_leaves, device) -> None:
+        lay = self._lay = _Layout(u_leaves, self.u_spec, self.lanes)
+        block = torch.zeros(lay.B, lay.n, dtype=u_leaves[0].dtype,
+                            device=device)
+        lane = dict(device=device)
+        time = dict(dtype=torch.float64, device=device)
+        self._restart = min(20, lay.n)      # gmres's default, capped at n
+        self._th = [torch.zeros_like(x) for x in th_leaves]
+        self._u, self._v, self._g = (block.clone() for _ in range(3))
+        self._rnorm = torch.zeros(lay.B, dtype=block.dtype, **lane)
+        self._it = torch.zeros(lay.B, dtype=torch.int64, **lane)
+        self._nlive = torch.zeros(lay.B, dtype=torch.bool, **lane)
+        self._live = torch.zeros((), dtype=torch.bool, **lane)
+        self._t = torch.zeros((), **time)
+        self._tn = torch.zeros((), **time)
+        self._diverged = torch.zeros(lay.B, dtype=torch.bool, **lane)
+        self._maxres = torch.zeros(lay.B, dtype=block.dtype, **lane)
+        self._iters = torch.zeros(lay.B, dtype=torch.int64, **lane)
+        self._gm = GmresCarry(block)
+        self._un, self._unext, self._lam = (block.clone() for _ in range(3))
+        self._mu = [torch.zeros_like(x) for x in th_leaves]
+        self._agm = GmresCarry(block)
+        self._held = (self._th, self._u, self._v, self._g, self._rnorm,
+                      self._it, self._nlive, self._live, self._t, self._tn,
+                      self._diverged, self._maxres, self._iters,
+                      self._gm.tensors(), self._un, self._unext, self._lam,
+                      self._mu, self._agm.tensors())
+
+    def _time(self, n: int) -> float:
         # t0 + dt*n everywhere, so a recomputed segment's times — hence its
         # states — are bitwise the forward sweep's
         return self.t0 + self.dt * n
 
-    def _advance(self, u, theta_p, start, m, stats=None, states=None):
-        """Run m implicit steps from u (step indices start..start+m-1),
-        appending each pre-step state to ``states`` when given, merging the
-        Newton reports into ``stats`` when given."""
-        for k in range(m):
-            if states is not None:
-                states.append(u)
-            u, info, resc = _step(self.f, self.cfg, u, theta_p,
-                                  self._t(start + k), self.dt)
-            if stats is not None:
-                stats = _stats_merge(stats, info, resc)
-        return u, stats, states
+    # -- call ------------------------------------------------------------------
+    def __call__(self, u0: PyTree, theta_p: PyTree):
+        u_leaves, u_spec = pytree.tree_flatten(u0)
+        th_leaves, th_spec = pytree.tree_flatten(theta_p)
+        self._bind(u_leaves, th_leaves, u_spec, th_spec)
+        cfg = self.cfg
+        if self.mass is not None:
+            return _odeint_implicit_mass(
+                self.f, self.mass, self.t0, self.dt, self.n_steps, cfg.theta,
+                cfg.newton_iters, cfg.newton_tol, cfg.gmres_iters,
+                cfg.gmres_tol, u0, theta_p)
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(x) and x.requires_grad
+                for x in u_leaves + th_leaves):
+            box: list = []
+            out = _ImplicitFunction.apply(self, box, *u_leaves, *th_leaves)
+            return pytree.tree_unflatten(list(out), u_spec), box[0]
+        # nothing to differentiate: the plain solve, no checkpoints
+        with torch.no_grad():
+            out, stats, _ = self.forward_leaves(u_leaves, th_leaves,
+                                                record=False)
+        return pytree.tree_unflatten(list(out), u_spec), stats
 
-    # -- forward sweeps: (u_final, stats, residuals) --------------------------
+    def forward_leaves(self, u_leaves, th_leaves, record: bool):
+        """(u_final leaves, stats, residuals of the reverse sweep)."""
+        th_leaves = list(th_leaves)
+        theta_p = pytree.tree_unflatten(th_leaves, self.th_spec)
+        u0 = pytree.tree_unflatten(list(u_leaves), self.u_spec)
+        if not self.masked:
+            if record:
+                u, stats, res = self.forward(u0, theta_p)
+            else:
+                u, stats, _ = self._advance(u0, theta_p, 0, self.n_steps,
+                                            _stats_zero())
+                res = None
+            return pytree.tree_leaves(u), stats, (res, theta_p)
+        # a later call overwrites the buffers an earlier reverse sweep reads
+        self.generation += 1
+        if self.capture:
+            self._capture(("start", "unit"))
+        for buf, x in zip(self._th, th_leaves):
+            buf.copy_(x)
+        for buf in (self._diverged, self._maxres, self._iters):
+            buf.zero_()
+        u0 = self._lay.flat(u0)
+        if record:
+            u, _, res = self.forward(u0, None)
+        else:
+            u, _, _ = self._advance(u0, None, 0, self.n_steps)
+            res = None
+        stats = self._read_stats()
+        if record and self.capture:
+            # captured here, on the caller's thread, not inside autograd's
+            # backward; their warm-ups write lam, mu and the adjoint GMRES,
+            # which the reverse sweep resets
+            self._capture(("adj_start", "adj_unit", "adj_finish"))
+        return pytree.tree_leaves(self._lay.unflat(u)), stats, res
+
+    def backward_leaves(self, res, g_leaves):
+        g = pytree.tree_unflatten(list(g_leaves), self.u_spec)
+        if not self.masked:
+            res, theta_p = res
+            return pytree.tree_leaves(self.backward(res, theta_p, g))
+        lam, mu = self.backward(res, None, self._lay.flat(g))
+        return (pytree.tree_leaves(self._lay.unflat(lam.clone()))
+                + [x.clone() for x in mu])
+
+    # -- forward sweeps: (u_final, stats, residuals) ---------------------------
     def forward(self, u0, theta_p):
         n, p = self.n_steps, self.policy
         if p == "pnode":
@@ -549,15 +762,18 @@ class _ImplicitSolver:
             u, stats, _ = self._advance(u, theta_p, a, b - a, stats)
         return u, stats, (store, u)
 
-    # -- reverse sweeps: (lam, mu) ----------------------------------------------
+    # -- reverse sweeps: (lam, mu) ---------------------------------------------
     def backward(self, res, theta_p, g):
-        f, cfg, dt = self.f, self.cfg, self.dt
-        lam, mu = g, tree_zeros_like(theta_p)
+        if self.masked:
+            self._lam.copy_(g)
+            for buf in self._mu:
+                buf.zero_()
+            lam, mu = self._lam, self._mu
+        else:
+            lam, mu = g, tree_zeros_like(theta_p)
 
         def adjoint(lam, mu, u_n, u_next, n):
-            lam, th_bar = _adjoint_step(f, cfg, u_n, u_next, theta_p,
-                                        self._t(n), dt, lam)
-            return lam, tree_add(mu, th_bar)
+            return self._adjoint(lam, mu, u_n, u_next, theta_p, n)
 
         if self.policy == "pnode":
             states, u_final = res
@@ -600,28 +816,231 @@ class _ImplicitSolver:
                 lam, mu = adjoint(lam, mu, states[k], u_nexts[k], a + k)
         return lam, mu
 
+    # -- the two primitives the sweeps run -------------------------------------
+    def _advance(self, u, theta_p, start, m, stats=None, states=None):
+        """Run m implicit steps from u (step indices start..start+m-1),
+        appending each pre-step state to ``states`` when given.  Eagerly,
+        the Newton reports are merged into ``stats`` when given; the masked
+        units merge them on the device (read after the forward sweep)."""
+        if not self.masked:
+            for k in range(m):
+                if states is not None:
+                    states.append(u)
+                u, info, resc = _step(self.f, self.cfg, u, theta_p,
+                                      self._time(start + k), self.dt)
+                if stats is not None:
+                    stats = _stats_merge(stats, info, resc)
+            return u, stats, states
+        self._u.copy_(u)
+        for k in range(m):
+            if states is not None:
+                states.append(self._u.clone())
+            self._set_times(start + k)
+            self._run("start")
+            self._loop("unit")
+        return self._u.clone(), stats, states
+
+    def _adjoint(self, lam, mu, u_n, u_next, theta_p, n):
+        """The adjoint of step n: (lam_n, mu + theta increment)."""
+        if not self.masked:
+            lam, th_bar = _adjoint_step(self.f, self.cfg, u_n, u_next,
+                                        theta_p, self._time(n), self.dt, lam)
+            return lam, tree_add(mu, th_bar)
+        self._un.copy_(u_n)
+        self._unext.copy_(u_next)
+        self._set_times(n)
+        self._run("adj_start")
+        self._loop("adj_unit")
+        self._run("adj_finish")
+        return lam, mu
+
+    # -- the masked units ------------------------------------------------------
+    def _set_times(self, n: int) -> None:
+        # on the host, outside any graph: t_n and t_n + h as the eager route
+        # computes them
+        self._t.fill_(self._time(n))
+        self._tn.fill_(self._time(n) + self.dt)
+
+    def _theta(self):
+        return pytree.tree_unflatten(self._th, self.th_spec)
+
+    def _jv(self):
+        """(I - h theta J) w at the Newton iterate, on (B, n) blocks."""
+        lay, th, tn = self._lay, self._theta(), self._tn
+        scale = -self.dt * self.cfg.theta
+        v = lay.unflat(self._v)
+
+        def A(w):
+            wt = lay.unflat(w)
+            _, jw = torch.func.jvp(lambda uu: self.f(uu, th, tn), (v,), (wt,))
+            return lay.flat(tree_axpy(scale, jw, wt))
+        return A
+
+    def _newton_exit(self, mask) -> None:
+        """For the lanes in ``mask``, whose iterate just changed: the
+        residual and its norm, then either the next GMRES solve or the end
+        of the step (stats merged, u <- v)."""
+        lay, cfg, h = self._lay, self.cfg, self.dt
+        v, g = lay.unflat(self._v), lay.unflat(self._g)
+        r = tree_sub(tree_axpy(-h * cfg.theta, self.f(v, self._theta(),
+                                                      self._tn), v), g)
+        self._rnorm.copy_(torch.where(mask, lay.norm(r), self._rnorm))
+        go_on = (self._it < cfg.newton_iters) \
+            & (self._rnorm.double() > cfg.newton_tol)
+        self._nlive.copy_(torch.where(mask, go_on, self._nlive))
+        self._gm.begin(self._jv(), -1.0 * lay.flat(r), mask & go_on,
+                       tol=cfg.gmres_tol, atol=0.0)
+        done = mask & ~go_on
+        converged = self._rnorm.double() <= cfg.newton_tol
+        self._diverged.copy_(self._diverged | (done & ~converged))
+        self._maxres.copy_(torch.where(
+            done, torch.maximum(self._maxres, self._rnorm), self._maxres))
+        self._iters.add_(torch.where(done, self._it, 0))
+        self._u.copy_(torch.where(done[:, None], self._v, self._u))
+
+    def _fwd_start(self) -> None:
+        """f(u_n), the constant part and the explicit-Euler predictor, then
+        the first residual."""
+        lay, h, theta = self._lay, self.dt, self.cfg.theta
+        u = lay.unflat(self._u)
+        f_n = self.f(u, self._theta(), self._t)
+        self._g.copy_(lay.flat(tree_axpy(h * (1.0 - theta), f_n, u)))
+        self._v.copy_(lay.flat(tree_axpy(h, f_n, u)))
+        self._it.zero_()
+        self._newton_exit(torch.ones_like(self._nlive))
+
+    def _fwd_unit(self) -> None:
+        """One GMRES cycle of the live lanes; a lane whose GMRES ends takes
+        the Newton update and its exit residual."""
+        gm, cycles = self._gm, self.cfg.gmres_iters
+        gm.cycle(self._jv(), self._nlive & gm.live(cycles), self._restart)
+        done = self._nlive & ~gm.live(cycles)
+        self._v.copy_(torch.where(done[:, None], self._v + gm.x, self._v))
+        self._it.add_(done.to(torch.int64))
+        self._newton_exit(done)
+        self._live.copy_(self._nlive.any())
+
+    def _vjp_next(self):
+        lay, tn = self._lay, self._tn
+        _, vjp = torch.func.vjp(lambda uu, th: self.f(uu, th, tn),
+                                lay.unflat(self._unext), self._theta())
+        return vjp
+
+    def _jtv(self):
+        """(I - h theta J(u_{n+1}))^T w, on (B, n) blocks."""
+        lay, vjp = self._lay, self._vjp_next()
+        scale = -self.dt * self.cfg.theta
+
+        def A(w):
+            wt = lay.unflat(w)
+            u_bar, _ = vjp(wt)
+            return lay.flat(tree_axpy(scale, u_bar, wt))
+        return A
+
+    def _adj_start(self) -> None:
+        self._agm.begin(self._jtv(), self._lam, torch.ones_like(self._nlive),
+                        tol=self.cfg.gmres_tol, atol=0.0)
+
+    def _adj_unit(self) -> None:
+        agm, cycles = self._agm, self.cfg.gmres_iters
+        agm.cycle(self._jtv(), agm.live(cycles), self._restart)
+        self._live.copy_(agm.live(cycles).any())
+
+    def _adj_finish(self) -> None:
+        """lambda_n and the theta increment from the transposed solve."""
+        lay, h, theta = self._lay, self.dt, self.cfg.theta
+        lam_s = lay.unflat(self._agm.x)
+        _, vjp_n = torch.func.vjp(lambda uu, th: self.f(uu, th, self._t),
+                                  lay.unflat(self._un), self._theta())
+        u_bar_n, th_bar_n = vjp_n(tree_scale(h * (1.0 - theta), lam_s))
+        lam_prev = tree_add(lam_s, u_bar_n)
+        _, th_bar_next = self._vjp_next()(tree_scale(h * theta, lam_s))
+        th_bar = tree_add(th_bar_n, th_bar_next)
+        self._lam.copy_(lay.flat(lam_prev))
+        for buf, x in zip(self._mu, pytree.tree_leaves(th_bar)):
+            buf.add_(x)
+
+    # -- running the units -----------------------------------------------------
+    def _unit(self, key: str):
+        return {"start": self._fwd_start, "unit": self._fwd_unit,
+                "adj_start": self._adj_start, "adj_unit": self._adj_unit,
+                "adj_finish": self._adj_finish}[key]
+
+    def _capture(self, keys) -> None:
+        """Capture the units ``keys`` not captured yet.  A capture's warm-up
+        runs the unit once on the buffers as they stand; callers load the
+        buffers the solve reads after it."""
+        for key in keys:
+            if key in self._graphs:
+                continue
+            fn = self._unit(key)
+            g = StepGraph(lambda held, copied, fn=fn: (fn(), self._live)[1],
+                          clone_outputs=False)
+            g.capture(self._held, ())
+            self._graphs[key] = g
+
+    def _run(self, key: str) -> None:
+        if self.capture:
+            self._graphs[key](self._held, ())
+        else:
+            self._unit(key)()
+
+    def _loop(self, key: str) -> None:
+        """Units until no lane is live: the host reads ``live`` after every
+        ``CHECK_EVERY`` of them (units past a lane's end change nothing)."""
+        while True:
+            for _ in range(CHECK_EVERY):
+                self._run(key)
+            self.replays += CHECK_EVERY
+            self.live_reads += 1
+            if not bool(self._live):
+                return
+
+    def _read_stats(self) -> ImplicitStats:
+        """The forward sweep's stats: per-lane tensors with lanes, else one
+        host read."""
+        if self.lanes:
+            return ImplicitStats(self._diverged.clone(), self._maxres.clone(),
+                                 self._iters.clone(),
+                                 torch.zeros_like(self._iters))
+        vals = torch.cat([x.to(torch.float64) for x in (
+            self._diverged, self._maxres, self._iters)]).tolist()
+        self.stats_reads += 1
+        return ImplicitStats(bool(vals[0]), vals[1], int(vals[2]), 0)
+
+    def graph_stats(self) -> dict:
+        """{key: (warmup_ms, capture_ms, pool_bytes)} of the captured
+        units; None on the CPU."""
+        return {k: (g.warmup_ms, g.capture_ms, g.pool_bytes)
+                for k, g in self._graphs.items()}
+
 
 class _ImplicitFunction(torch.autograd.Function):
     """Custom gradient of one implicit checkpoint policy.  Inputs are the
     flattened leaves of u0 then theta_p; outputs the leaves of u_final."""
 
     @staticmethod
-    def forward(ctx, solver: _ImplicitSolver, box: list, *leaves):
-        u0, theta_p = solver.unflatten(
-            [x.detach() if torch.is_tensor(x) else x for x in leaves])
-        u_final, stats, res = solver.forward(u0, theta_p)
+    def forward(ctx, solver: ImplicitSolver, box: list, *leaves):
+        leaves = [x.detach() if torch.is_tensor(x) else x for x in leaves]
+        out, stats, res = solver.forward_leaves(
+            leaves[:solver.n_u], leaves[solver.n_u:], record=True)
         box.append(stats)
-        ctx.solver, ctx.res, ctx.theta_p = solver, res, theta_p
-        return tuple(pytree.tree_leaves(u_final))
+        ctx.solver, ctx.res = solver, res
+        ctx.generation = solver.generation
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, *g_leaves):
-        solver, res, theta_p = ctx.solver, ctx.res, ctx.theta_p
-        ctx.res = ctx.theta_p = None  # one reverse sweep consumes them
+        solver, res = ctx.solver, ctx.res
+        ctx.res = None  # one reverse sweep consumes the checkpoints
         if res is None:
             raise RuntimeError("odeint_implicit's reverse sweep ran twice; "
                                "its checkpoints are consumed by the first")
-        g = pytree.tree_unflatten(list(g_leaves), solver.u_spec)
-        lam, mu = solver.backward(res, theta_p, g)
-        return (None, None,
-                *(x.detach() for x in pytree.tree_leaves((lam, mu))))
+        if ctx.generation != solver.generation:
+            raise RuntimeError(
+                "ImplicitSolver: the solver ran a later forward pass, which "
+                "overwrote the buffers this reverse sweep reads; run each "
+                "reverse sweep before the solver's next call, or keep one "
+                "solver per call")
+        grads = solver.backward_leaves(res, g_leaves)
+        return (None, None, *(x.detach() for x in grads))

@@ -10,21 +10,25 @@ fp64, the MLP's weights fp32, promoted where they meet the state.
 
 Expected: CN trains stably to low loss; Dopri5's gradient norm is orders of
 magnitude larger / the step count explodes as the learned model stiffens
-(paper Fig. 5 and Table 8).  Both losses run eagerly: the Newton and GMRES
-exits are read on the host.  ``--mem-budget`` (the memory planner's
-choice of checkpoint policy) is not ported.
+(paper Fig. 5 and Table 8).  Each of the 19 observation intervals has its
+own solver, kept across epochs: an ``ImplicitSolver`` for CN and an
+``AdaptiveSolver`` for Dopri5, each captured as CUDA graphs on the card
+(``capture=False`` in ``run`` runs the same losses eagerly, with bitwise
+equal results).  ``--mem-budget`` (the memory planner's choice of
+checkpoint policy) is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.adaptive import odeint_adaptive
-from repro_torch.core.implicit import odeint_implicit
+from repro_torch.core.adaptive import AdaptiveSolver
+from repro_torch.core.implicit import ImplicitSolver
 from repro_torch.models.ode_nets import mlp_vf, mlp_vf_init, resolve_device
 from repro_torch.optim.adamw import AdamW
 
@@ -42,18 +46,22 @@ def robertson_rhs(u, _th, _t):
     ])
 
 
-def robertson_truth(n_pts: int = 30, device="cpu"):
+def robertson_truth(n_pts: int = 30, device="cpu", capture: bool = False):
     """Integrate the true Robertson system on a log-time grid (backward
     Euler with tiny steps — the reference trajectory).  Returns the times
-    and the (n_pts, 3) fp64 states as numpy arrays."""
+    and the (n_pts, 3) fp64 states as numpy arrays.  ``capture`` runs each
+    interval through a captured ``ImplicitSolver`` (bitwise the eager
+    solve)."""
     ts = np.logspace(-5, 2, n_pts)
     u = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=device)
     traj = []
     t_prev = 0.0
     for t in ts:
-        u = odeint_implicit(robertson_rhs, u, 0.0,
-                            dt=(float(t) - t_prev) / 40, n_steps=40,
-                            t0=t_prev, method="beuler", newton_iters=20)
+        u, _ = ImplicitSolver(robertson_rhs, dt=(float(t) - t_prev) / 40,
+                              n_steps=40, t0=t_prev, method="beuler",
+                              newton_iters=20, capture=capture)(
+                                  u, torch.zeros((), dtype=u.dtype,
+                                                 device=u.device))
         traj.append(u.cpu().numpy())
         t_prev = float(t)
     return ts, np.array(traj)
@@ -74,22 +82,39 @@ def vector_field(u, theta, t):
     return mlp_vf(u, pytree.tree_map(lambda p: p.to(u.dtype), theta), t)
 
 
+class Losses(NamedTuple):
+    """The two training losses and the solvers they run, one an interval."""
+    cn: Callable
+    dopri: Callable
+    cn_solvers: list
+    dopri_solvers: list
+
+
 def make_losses(y0, target, *, adjoint: str = "pnode",
-                ncheck: int | None = None, cn_stats: list | None = None):
+                ncheck: int | None = None, cn_stats: list | None = None,
+                capture: bool = True) -> Losses:
     """The two training losses (MAE over the observation points, paper
     eq. 15): fixed-step CN over the scaled pseudo-time horizon, matching
     the observation points, and adaptive Dopri5 over the same intervals.
     ``adjoint``/``ncheck`` pick the CN checkpoint policy; each CN solve's
-    ``ImplicitStats`` is appended to ``cn_stats`` when given."""
+    ``ImplicitStats`` is appended to ``cn_stats`` when given.  Each
+    interval has its own solver (a solver's buffers hold its last call,
+    and the losses chain 19 calls before the reverse sweep); ``capture``
+    replays CUDA graphs on the card."""
     n_obs = target.shape[0]
+    cn_solvers = [ImplicitSolver(vector_field, dt=0.5, n_steps=2,
+                                 t0=float(k), adjoint=adjoint, ncheck=ncheck,
+                                 capture=capture, **CN_KW)
+                  for k in range(n_obs - 1)]
+    dopri_solvers = [AdaptiveSolver(vector_field, t0=float(k),
+                                    t1=float(k + 1), rtol=1e-6, atol=1e-6,
+                                    max_steps=512, capture=capture)
+                     for k in range(n_obs - 1)]
 
     def loss_cn(theta):
         us, u = [], y0
-        for k in range(n_obs - 1):
-            u, stats = odeint_implicit(vector_field, u, theta, dt=0.5,
-                                       n_steps=2, t0=float(k),
-                                       adjoint=adjoint, ncheck=ncheck,
-                                       return_stats=True, **CN_KW)
+        for solver in cn_solvers:
+            u, stats = solver(u, theta)
             if cn_stats is not None:
                 cn_stats.append(stats)
             us.append(u)
@@ -98,15 +123,13 @@ def make_losses(y0, target, *, adjoint: str = "pnode",
 
     def loss_dopri(theta):
         us, u = [], y0
-        for k in range(n_obs - 1):
-            u, _ = odeint_adaptive(vector_field, u, theta, t0=float(k),
-                                   t1=float(k + 1), rtol=1e-6, atol=1e-6,
-                                   max_steps=512)
+        for solver in dopri_solvers:
+            u, _ = solver(u, theta)
             us.append(u)
         pred = torch.stack([y0] + us)
         return torch.mean(torch.abs(pred - target))
 
-    return loss_cn, loss_dopri
+    return Losses(loss_cn, loss_dopri, cn_solvers, dopri_solvers)
 
 
 def value_and_grad(loss_fn, params):
@@ -152,23 +175,29 @@ def train(loss_fn, theta, epochs: int, *, log=print):
 
 
 def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
-        theta=None, log=print):
+        theta=None, capture: bool | None = None, log=print):
     """The example: the truth, then CN and Dopri5 training of ``mlp_vf``
     (``hidden`` wide, 3 hidden layers; ``theta`` overrides the seeded
-    weights).  Returns {"cn": ..., "dopri5": ...} as ``train`` returns,
-    the CN solves' ``ImplicitStats`` under "cn_stats", and the truth."""
+    weights).  ``capture`` as ``make_losses`` takes it, for the truth
+    too; by default on the card only (on the CPU a captured solve runs
+    the masked units eagerly, bitwise the eager route and slower).
+    Returns {"cn": ..., "dopri5": ...} as ``train`` returns, the CN
+    solves' ``ImplicitStats`` under "cn_stats", the ``Losses`` under
+    "losses", and the truth."""
     device = resolve_device(device)
-    ts, y = robertson_truth(20, device=device)
+    if capture is None:
+        capture = device.type == "cuda"
+    ts, y = robertson_truth(20, device=device, capture=capture)
     y0, target = scaled_data(y, device)
     if theta is None:
         theta = mlp_vf_init(torch.Generator().manual_seed(seed), 3,
                             hidden=hidden, n_hidden=3, device=device)
     cn_stats: list = []
-    loss_cn, loss_dopri = make_losses(y0, target, cn_stats=cn_stats)
-    out = dict(ts=ts, truth=y, cn_stats=cn_stats)
-    for key, name, loss_fn in (("cn", "CN (implicit)", loss_cn),
+    losses = make_losses(y0, target, cn_stats=cn_stats, capture=capture)
+    out = dict(ts=ts, truth=y, cn_stats=cn_stats, losses=losses)
+    for key, name, loss_fn in (("cn", "CN (implicit)", losses.cn),
                                ("dopri5", "Dopri5 (explicit adaptive)",
-                                loss_dopri)):
+                                losses.dopri)):
         log(f"\n=== training with {name} ===")
         t0 = time.perf_counter()
         out[key] = res = train(loss_fn, theta, epochs, log=log)

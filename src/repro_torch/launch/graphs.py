@@ -29,10 +29,13 @@ so a stream of each graph's own would hold a workspace each.  A capture
 that fails raises: there is no eager fallback on the card.  On CPU
 tensors, where the caller asked for the CPU, ``fn`` runs eagerly on the
 static buffers every call, so the CPU tests cover everything but the
-graph itself.
+graph itself.  The garbage collector is held off during a capture: a
+collection there can destroy an unreachable graph, which would
+invalidate the capture.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable
 
@@ -152,11 +155,21 @@ class StepGraph:
             torch.cuda.synchronize()
             self.warmup_ms = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            # torch.cuda.graph synchronizes and empties the cache on entry,
-            # so the pool is what the reserved bytes grow by inside it
-            with capture:
-                reserved = torch.cuda.memory_reserved()
-                out = self.fn(*args)
+            # a garbage collection inside the capture may destroy another
+            # graph, a CUDA call that invalidates the capture: the
+            # collector is held off until the capture ends
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                # torch.cuda.graph synchronizes and empties the cache on
+                # entry, so the pool is what the reserved bytes grow by
+                # inside it
+                with capture:
+                    reserved = torch.cuda.memory_reserved()
+                    out = self.fn(*args)
+            finally:
+                if collecting:
+                    gc.enable()
             torch.cuda.synchronize()
             self.capture_ms = (time.perf_counter() - t0) * 1e3
             self.pool_bytes = torch.cuda.memory_reserved() - reserved

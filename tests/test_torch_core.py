@@ -225,6 +225,52 @@ def test_ncheck_validated(bad):
         _port_grads("revolve", ncheck=bad)
 
 
+@pytest.mark.parametrize("kw,item", [
+    (dict(adjoint="auto", mem_budget=10 ** 6), "item 9"),
+    (dict(adjoint="auto"), "item 9"), (dict(mem_budget=10 ** 6), "item 9"),
+    (dict(ram_budget=10 ** 6), "item 9"), (dict(disk_budget=10 ** 6),
+                                           "item 9"),
+    (dict(mem_verify="model"), "item 9"),
+    (dict(offload="host"), "item 10"), (dict(offload="spill"), "item 10"),
+    (dict(offload="disk"), "item 10"), (dict(offload_segment=2), "item 10"),
+    (dict(snaps_in_ram=1), "item 10"), (dict(offload_dir="/x"), "item 10"),
+    (dict(offload_store=object()), "item 10"),
+    (dict(obs=object()), "item 11")])
+def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, item):
+    """The reference's memory keywords are taken (not a TypeError) and
+    refused until their module is ported."""
+    u0n, thn = _problem_np()
+    args = dict(dt=0.1, n_steps=3)
+    args.update(kw)
+    with pytest.raises(NotImplementedError, match=item):
+        tadj.odeint(_tf, _t(u0n), {k: _t(v) for k, v in thn.items()},
+                    **args)
+    if "offload" in kw:
+        with pytest.raises(NotImplementedError, match=item):
+            tadj.odeint_with_quadrature(
+                _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),
+                {k: _t(v) for k, v in thn.items()}, **args)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(adjoint="pnode3"), "unknown adjoint policy"),
+    (dict(offload="tape"), "unknown offload tier")])
+def test_odeint_bad_names_raise_value_error_as_the_reference(kw, match):
+    u0n, thn = _problem_np()
+    for odeint, f, t in ((tadj.odeint, _tf, _t), (jadj.odeint, _jf,
+                                                  jnp.asarray)):
+        with pytest.raises(ValueError, match=match):
+            odeint(f, t(u0n), {k: t(v) for k, v in thn.items()}, dt=0.1,
+                   n_steps=3, **kw)
+
+
+def test_odeint_device_offload_is_the_default_path():
+    a = _port_grads("revolve", ncheck=3)
+    b = _port_grads("revolve", ncheck=3, offload="device")
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_quadrature_matches_jax():
     u0n, thn = _problem_np()
 

@@ -825,6 +825,155 @@ def test_implicit_policies_bitwise_on_the_card_and_close_to_the_cpu(cuda,
                                    atol=1e-10)
 
 
+K_BASE = (0.04, 3.0e7, 1.0e4)
+
+
+def _rob_lanes(u, c, t):
+    """Robertson kinetics with per-lane log-multipliers c on the rates."""
+    k1, k2, k3 = (b * torch.exp(c[:, i]) for i, b in enumerate(K_BASE))
+    du1 = -k1 * u[:, 0] + k3 * u[:, 1] * u[:, 2]
+    du3 = k2 * u[:, 1] ** 2
+    return torch.stack([du1, -du1 - du3, du3], dim=-1)
+
+
+def _tanh_field(u, th, t):
+    return torch.tanh(th["W"] @ u + th["b"]) - 0.5 * u
+
+
+def _implicit_grads(solver, dev, lanes):
+    """(u_final, gradients, stats) of ``solver`` on seeded fp64 inputs: 6
+    ensemble lanes with per-lane c, or the d = 5 tanh field."""
+    rs = np.random.RandomState(3)
+    if lanes:
+        u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64,
+                          device=dev).repeat(6, 1).requires_grad_(True)
+        args = [u0, torch.tensor(0.2 * rs.randn(6, 3), device=dev,
+                                 requires_grad=True)]
+        uf, st = solver(*args)
+        leaves = args
+    else:
+        u0 = torch.tensor(rs.randn(5), device=dev, requires_grad=True)
+        th = {"W": torch.tensor(0.5 * rs.randn(5, 5), device=dev,
+                                requires_grad=True),
+              "b": torch.tensor(0.1 * rs.randn(5), device=dev,
+                                requires_grad=True)}
+        uf, st = solver(u0, th)
+        leaves = [u0, th["W"], th["b"]]
+    g = torch.autograd.grad((uf ** 2).sum(), leaves)
+    return [uf.detach()] + list(g), st
+
+
+def _implicit_solver(lanes, capture, n_steps=1, **kw):
+    if lanes:
+        return timp.ImplicitSolver(_rob_lanes, dt=0.01, n_steps=n_steps,
+                                   lanes=True, capture=capture,
+                                   newton_iters=16, newton_tol=1e-10,
+                                   gmres_iters=5, gmres_tol=1e-12, **kw)
+    return timp.ImplicitSolver(_tanh_field, dt=0.2, n_steps=n_steps,
+                               capture=capture, **kw)
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("method", ["beuler", "cn"])
+def test_implicit_step_and_adjoint_step_captured_bitwise_eager(cuda, lanes,
+                                                               method):
+    """One implicit step and its adjoint step, replayed from the captured
+    units, bitwise equal to eager (the eager route without lanes, the
+    masked units run eagerly with them), with equal stats."""
+    eager, st_e = _implicit_grads(_implicit_solver(lanes, False,
+                                                   method=method),
+                                  cuda, lanes)
+    solver = _implicit_solver(lanes, True, method=method)
+    for _ in range(2):   # the capturing call, then pure replays
+        cap, st_c = _implicit_grads(solver, cuda, lanes)
+        assert _same_bits(cap, eager)
+        if lanes:
+            assert all(torch.equal(a, b) for a, b in zip(st_c, st_e))
+            assert not bool(st_c.diverged.any())
+        else:
+            assert st_c == st_e and not st_c.diverged
+    assert set(solver.graph_stats()) == {"start", "unit", "adj_start",
+                                         "adj_unit", "adj_finish"}
+    assert all(v[2] is not None for v in solver.graph_stats().values())
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("policy,ncheck", [("pnode", None), ("revolve", 2),
+                                           ("revolve2", 2)])
+def test_implicit_capture_reads_only_the_live_flag(cuda, lanes, policy,
+                                                   ncheck):
+    """A captured solve reads nothing on the host but the ``live`` flag,
+    once every ``CHECK_EVERY`` replays, and (without lanes) the stats
+    once; its gradient is bitwise the eager one under every policy."""
+    kw = dict(n_steps=5, adjoint=policy, ncheck=ncheck)
+    eager, _ = _implicit_grads(_implicit_solver(lanes, False, **kw), cuda,
+                               lanes)
+    solver = _implicit_solver(lanes, True, **kw)
+    _implicit_grads(solver, cuda, lanes)
+    r0, l0, s0 = solver.replays, solver.live_reads, solver.stats_reads
+    cap, _ = _implicit_grads(solver, cuda, lanes)
+    replays, reads = solver.replays - r0, solver.live_reads - l0
+    assert replays > 0 and reads == -(-replays // tad.CHECK_EVERY)
+    assert solver.stats_reads - s0 == (0 if lanes else 1)
+    assert _same_bits(cap, eager)
+
+
+def test_robertson_cn_loss_captured_bitwise_eager(cuda):
+    """The example's 19-solve CN loss (one captured ``ImplicitSolver`` an
+    interval) and its Dopri5 loss: value and gradient bitwise eager."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.examples import stiff_robertson as trob
+    rs = np.random.RandomState(0)
+    y0, target = trob.scaled_data(rs.rand(20, 3), cuda)
+    theta = trob.mlp_vf_init(torch.Generator().manual_seed(0), 3, hidden=32,
+                             n_hidden=3, device=cuda)
+    out = {}
+    for capture in (False, True):
+        losses = trob.make_losses(y0, target, capture=capture)
+        for name in ("cn", "dopri"):
+            loss, g = trob.value_and_grad(getattr(losses, name), theta)
+            out[capture, name] = [loss] + pytree.tree_leaves(g)
+    for name in ("cn", "dopri"):
+        assert _same_bits(out[True, name], out[False, name]), name
+
+
+def test_implicit_reverse_over_overwritten_buffers_raises(cuda):
+    """A captured solver's buffers hold its last call: the reverse sweep
+    of an earlier call raises; the latest call's still runs."""
+    solver = _implicit_solver(False, True, n_steps=2)
+    rs = np.random.RandomState(4)
+    th = {"W": torch.tensor(0.5 * rs.randn(5, 5), device=cuda),
+          "b": torch.tensor(0.1 * rs.randn(5), device=cuda)}
+    u1 = torch.tensor(rs.randn(5), device=cuda, requires_grad=True)
+    u2 = torch.tensor(rs.randn(5), device=cuda, requires_grad=True)
+    uf1, _ = solver(u1, th)
+    uf2, _ = solver(u2, th)
+    with pytest.raises(RuntimeError, match="later forward pass"):
+        torch.autograd.grad(uf1.sum(), [u1])
+    g2, = torch.autograd.grad(uf2.sum(), [u2])
+    assert bool(torch.isfinite(g2).all())
+
+
+def test_step_graph_holds_the_collector_off_during_a_capture(cuda):
+    """The cyclic garbage collector is off while a step is captured (a
+    collection there may destroy an unreachable graph, which invalidates
+    the capture) and back as it was after; the warm-up runs with it."""
+    import gc
+    seen = []
+    step = StepGraph(lambda h, c: (seen.append(gc.isenabled()), h * c)[1],
+                     clone_outputs=True)
+    a = torch.arange(4.0, device=cuda)
+    assert gc.isenabled()
+    assert torch.equal(step(a, torch.full((4,), 2.0, device=cuda)), 2 * a)
+    assert seen == [True, False] and gc.isenabled()
+    gc.disable()
+    try:
+        StepGraph(lambda h, c: h * c, clone_outputs=True)(a, a)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_step_graph_refuses_on_the_card(cuda):
     """Last in the file: a failed capture may leave its side stream's
     allocator state behind."""

@@ -287,6 +287,17 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, item):
         timp.odeint_implicit(_tf, _t(u0), _t(th), dt=DT, n_steps=N, **kw)
 
 
+@pytest.mark.parametrize("kw", [dict(lanes=True, rescue=True),
+                                dict(lanes=True, mass=np.eye(D)),
+                                dict(capture=True, rescue=True),
+                                dict(capture=True, mass=np.eye(D))],
+                         ids=["lanes-rescue", "lanes-mass", "capture-rescue",
+                              "capture-mass"])
+def test_masked_solver_refuses_rescue_and_mass_naming_item_7c(kw):
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        timp.ImplicitSolver(_tf, dt=DT, n_steps=N, **kw)
+
+
 def test_validation_follows_the_reference():
     u0, th = _problem_np()
     for kw, match in ((dict(adjoint="naive"), "impossible"),
