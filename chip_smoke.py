@@ -125,15 +125,32 @@ Phases (any failure exits non-zero, before the last line is printed):
    Newton iterations, states within 1e-12) and 64 against the port on
    the CPU (rtol 1e-8 / atol 1e-10), with times, replays, host reads,
    graph pools, one trace and the peak;
+15. the memory planner (``repro_torch.mem``) at the classifier's width
+   (phase 4's ODE block: state 128 x 32 x 32 x 32 fp32, phase 4's seeded
+   weights and first batch, rk4): naive, pnode, pnode2 and revolve(2) at
+   N_t = 4 and 8, each gradient's peak from the CUDA allocator
+   (``measure_reverse_cost``) beside the Table-2 model and the live
+   tensor tracker; the Fig. 3 contracts of ``tests/test_mem.py`` (order
+   naive > pnode > pnode2 measured and modelled, pnode slope ratio in
+   (0.2, 5)); ``odeint(adjoint="auto", mem_budget=B, fused_stages=True)``
+   at each measured peak, twice naive's and naive's modelled peak: the
+   plan measured within B and again in a window of its own, the
+   classifier gradient (counted: ``expected_lincomb_calls`` of each
+   plan, no measurement) BITWISE the chosen policy's and within
+   ``CLS_GRAD_TOL`` of naive's; one byte under the cheapest in-device
+   candidate the plan is pnode + spill and the solve raises (ROADMAP
+   Queue 1 item 10); then the Robertson example's ``--mem-budget
+   400000``: its plan line the CPU's, its epoch 0 the explicit policy's;
 11. last: one JSON line with each kernel's launches on its main path
-   (which must equal ``expected_lincomb_calls`` +
+   (which must equal ``expected_lincomb_calls`` (phases 3-4 and 15) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
    ``expected_rwkv6_calls``), its error against the plain version and
    its times; then the nvidia-smi line; then the result line.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 3-4 and each of phase 12's two eager fused runs for
-``fused_lincomb``, phase 6 for the flash
+(phases 3-4, each of phase 12's two eager fused runs and phase 15's
+auto-planned classifier gradients for ``fused_lincomb``, phase 6 for the
+flash
 kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
@@ -232,7 +249,13 @@ def time_ms(fn, iters=50, warmup=5):
 
 
 SESSIONS = 4     # profiling sessions a traced window may take
-MARKS = 64       # spin kernels that open and close every traced window
+LEAD_MARKS = 1024  # spin kernels that open every traced window
+TAIL_MARKS = 64    # spin kernels that close every traced window
+TAIL_PAUSE_S = 0.05  # host seconds a session runs on after its last mark
+# what the sessions lost: their count, the most opening marks one session
+# lost, and the sessions that lost every mark at one end
+PROFILER_LOSS = {"sessions": 0, "most_opening_marks_lost": 0,
+                 "sessions_failed": 0}
 
 
 def device_kernels(fn, iters=1):
@@ -240,41 +263,60 @@ def device_kernels(fn, iters=1):
     kernels ``fn`` runs, from the profiler's CUPTI records, and the host
     milliseconds of the window (ending in a synchronize).
 
-    ``torch.profiler`` on the H100 machine can lose the records at either
-    end of a session (more of them after a large trace; never in the
-    middle), so the window is bracketed by ``MARKS`` spin kernels on each
-    side: its records are complete when a mark survives at both ends.
-    A session where one end lost every mark is traced again, calling
-    ``fn`` anew, up to ``SESSIONS`` sessions; then the run fails."""
+    ``torch.profiler`` on the H100 machine loses records at the ends of a
+    session, never in the middle, in two ways.  At the start it drops the
+    first records of every session, a count that grows with the sessions
+    the process has run, so ``LEAD_MARKS`` spin kernels open the window.
+    At the end it drops the records whose kernels finished just before
+    the session stopped, more of them after a large window, so the
+    session stays open ``TAIL_PAUSE_S`` after the ``TAIL_MARKS`` closing
+    marks.  The window's records are complete when a mark survives at
+    both ends; a session where one end lost every mark is traced again,
+    calling ``fn`` anew, up to ``SESSIONS`` sessions; then the run
+    fails."""
+    import gc
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def marks():
-        for _ in range(MARKS):
+    def marks(n):
+        for _ in range(n):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
 
     for _ in range(SESSIONS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            marks()
+            marks(LEAD_MARKS)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            marks()
+            marks(TAIL_MARKS)
+            time.sleep(TAIL_PAUSE_S)
         recs = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
+        del prof
         is_mark = ["spin_kernel" in e.name for e in recs]
+        lead = next((i for i, m in enumerate(is_mark) if not m), len(recs))
+        PROFILER_LOSS["sessions"] += 1
+        PROFILER_LOSS["most_opening_marks_lost"] = max(
+            PROFILER_LOSS["most_opening_marks_lost"], LEAD_MARKS - lead)
         if recs and is_mark[0] and is_mark[-1]:
             return [(e.name, e.time_range.elapsed_us(), e.time_range.start,
                      e.time_range.end) for e, m in zip(recs, is_mark)
                     if not m], wall_ms
+        PROFILER_LOSS["sessions_failed"] += 1
+        tail = next((i for i, m in enumerate(reversed(is_mark)) if not m),
+                    len(recs))
         print(f"  (profiler: a session lost the records at one end of its "
-              f"window; {len(recs)} records)", flush=True)
+              f"window; {len(recs)} records, {lead} of {LEAD_MARKS} opening "
+              f"and {tail} of {TAIL_MARKS} closing marks left)", flush=True)
+        del recs
+        gc.collect()
     fail(f"the profiler lost records of a traced window in {SESSIONS} "
          "sessions")
 
@@ -2152,6 +2194,281 @@ def ensemble_phase(card, dev):
                 peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the memory planner at the classifier's width
+# ---------------------------------------------------------------------------
+
+PLAN_NT = (4, 8)           # N_t of the measured table (Fig. 3's axis)
+PLAN_POLICIES = [("naive", None), ("pnode", None), ("pnode2", None),
+                 ("revolve", 2)]
+PLAN_SLOPE = (0.2, 5.0)    # model / measured pnode slope (tests/test_mem.py)
+ROB_PLAN_BUDGET = 400000   # the Robertson example's in-device budget
+
+
+def cls_odeint_grads(params, images, labels, **odeint_kw):
+    """The classifier's loss and gradient with its ODE block solved by
+    ``odeint(conv_vf, ...)`` over [0, 1] in ``CLS["n_steps"]`` rk4 steps,
+    with ``odeint_kw`` (the policy, or ``adjoint="auto"`` and a budget)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.adjoint import odeint
+    from repro_torch.models.ode_nets import classifier_apply, softmax_xent
+
+    def odeint_fn(vf, u, th):
+        return odeint(vf, u, th, dt=1.0 / CLS["n_steps"],
+                      n_steps=CLS["n_steps"], method=CLS["method"],
+                      **odeint_kw)
+
+    leaves = [p.detach().requires_grad_(True)
+              for p in pytree.tree_leaves(params)]
+    p = pytree.tree_unflatten(leaves, pytree.tree_structure(params))
+    loss = softmax_xent(classifier_apply(p, images, odeint_fn=odeint_fn),
+                        labels)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def planner_phase(card, dev, params, images, labels):
+    """The memory planner (``repro_torch.mem``) on the card at the §5.1
+    classifier's width: its ODE block's state (batch 128 x 32 x 32 x 32
+    fp32, from phase 4's seeded weights and first batch), rk4.  Measured
+    peaks (the CUDA allocator) beside the Table-2 model and the live
+    tensor tracker; the Fig. 3 order and slope contracts; auto plans at
+    anchor budgets that fit, measured again in windows of their own, with
+    gradients bitwise the chosen policy's; the spill fallback refused;
+    the Robertson example's ``--mem-budget``."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.core.adjoint import (_FUSED_POLICIES,
+                                          expected_lincomb_calls)
+    from repro_torch.examples import stiff_robertson as trob
+    from repro_torch.kernels import ops
+    from repro_torch.mem import model
+    from repro_torch.mem.planner import candidate_costs, plan_odeint
+    from repro_torch.models.ode_nets import (classifier_apply, conv_vf,
+                                             mlp_vf_init)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    gc_collect()
+    box = []
+    with torch.no_grad():  # the ODE block's input, as the classifier makes it
+        classifier_apply(params, images,
+                         odeint_fn=lambda vf, u, th: box.append(u) or u)
+    u0, theta = box[0], params["ode"]
+    sb, tb = model.tree_bytes(u0), model.tree_bytes(theta)
+    fa = model.f_activation_bytes(conv_vf, u0, theta)
+    print(f"planner: ODE state {tuple(u0.shape)} {u0.dtype} = {sb} B, "
+          f"theta {tb} B, f_activation_bytes {fa} B ({fa / sb:.2f} states; "
+          f"aten outputs of one conv_vf on meta tensors)", flush=True)
+
+    def kw(n_t):
+        return dict(dt=1.0 / n_t, n_steps=n_t, method=CLS["method"])
+
+    def fused(policy):
+        return policy in _FUSED_POLICIES
+
+    def measure(policy, ncheck, n_t):
+        return model.measure_reverse_cost(
+            conv_vf, u0, theta, policy=policy, ncheck=ncheck,
+            fused_stages=fused(policy), **kw(n_t))
+
+    table = []
+    for n_t in PLAN_NT:
+        for policy, ncheck in PLAN_POLICIES:
+            m = measure(policy, ncheck, n_t)
+            check(m["source"] == "cuda_allocator",
+                  f"measure_reverse_cost read {m['source']} on the card")
+            pred = model.policy_cost(policy, method=CLS["method"],
+                                     n_steps=n_t, state_bytes=sb,
+                                     theta_bytes=tb, f_act_bytes=fa,
+                                     ncheck=ncheck).peak_bytes
+            live = model.live_tensor_peak(model.reverse_pass(
+                conv_vf, u0, theta, policy=policy, ncheck=ncheck,
+                fused_stages=fused(policy), **kw(n_t)))
+            row = dict(policy=policy, ncheck=ncheck, n_steps=n_t,
+                       model_bytes=pred, allocator_bytes=m["peak_bytes"],
+                       tracker_bytes=live, fused=fused(policy))
+            table.append(row)
+            print(f"planner N_t={n_t} {policy}"
+                  f"{'' if ncheck is None else f'({ncheck})'}"
+                  f"{' fused' if fused(policy) else ''}: model {pred} B, "
+                  f"allocator {m['peak_bytes']} B "
+                  f"({m['peak_bytes'] / max(pred, 1):.3f}x the model), "
+                  f"tracker {live} B (allocator/tracker "
+                  f"{m['peak_bytes'] / max(live, 1):.4f}) {card}",
+                  flush=True)
+
+    def at(key, policy, n_t):
+        return next(r[key] for r in table
+                    if r["policy"] == policy and r["n_steps"] == n_t)
+
+    order = ["naive", "pnode", "pnode2"]
+    for n_t in PLAN_NT:
+        for key in ("allocator_bytes", "model_bytes"):
+            vals = [at(key, p, n_t) for p in order]
+            check(vals[0] > vals[1] > vals[2],
+                  f"Fig. 3 order naive > pnode > pnode2 fails for {key} at "
+                  f"N_t={n_t}: {vals}")
+    lo, hi = PLAN_NT
+    meas_slope = (at("allocator_bytes", "pnode", hi)
+                  - at("allocator_bytes", "pnode", lo)) / (hi - lo)
+    pred_slope = (at("model_bytes", "pnode", hi)
+                  - at("model_bytes", "pnode", lo)) / (hi - lo)
+    ratio = pred_slope / meas_slope
+    check(PLAN_SLOPE[0] < ratio < PLAN_SLOPE[1],
+          f"pnode slope: model {pred_slope} B a step over measured "
+          f"{meas_slope} = {ratio}, outside {PLAN_SLOPE}")
+    print(f"planner Fig. 3 contracts on the card: allocator and model order "
+          f"naive > pnode > pnode2 at N_t={PLAN_NT}; pnode slope model "
+          f"{pred_slope:.0f} B a step / measured {meas_slope:.0f} = "
+          f"{ratio:.4f} (in {PLAN_SLOPE})", flush=True)
+
+    # -- auto plans at the anchor budgets (N_t of the classifier) -----------
+    n_t = CLS["n_steps"]
+    anchors = {f"{p}{'' if k is None else f'({k})'}":
+               at("allocator_bytes", p, n_t) for p, k in PLAN_POLICIES}
+    anchors["2x naive"] = 2 * anchors["naive"]
+    anchors["naive's model"] = at("model_bytes", "naive", n_t)
+    plans = {}
+    for name, budget in anchors.items():
+        plan = plan_odeint(conv_vf, u0, theta, mem_budget=budget,
+                           fused_stages=True, explain=True, **kw(n_t))
+        check(plan.offload is None and plan.fits
+              and plan.measured_bytes is not None
+              and plan.measured_bytes <= budget,
+              f"auto plan at {name} = {budget} B: {plan.policy} "
+              f"{plan.ncheck} {plan.offload}, measured {plan.measured_bytes}")
+        window = model.allocator_peak(model.reverse_pass(
+            conv_vf, u0, theta, policy="auto", mem_budget=budget,
+            fused_stages=True, **kw(n_t)), dev)
+        check(window <= budget, f"auto plan at {name}: its gradient peaked "
+              f"at {window} B in a window of its own, over {budget} B")
+        plans[name] = (budget, plan, window)
+        print(f"planner budget {name} = {budget} B: {plan.policy}"
+              f"{'' if plan.ncheck is None else f'({plan.ncheck})'}, "
+              f"measured {plan.measured_bytes} B, again in its own window "
+              f"{window} B, predicted {plan.predicted.peak_bytes} B, NFE-B "
+              f"{plan.extra_fevals} {card}", flush=True)
+    shown = plans["pnode"][1]
+    print(f"planner explain=True at the pnode anchor ({plans['pnode'][0]} "
+          "B):", flush=True)
+    for r in shown.report:
+        print(f"  {r.policy}{'' if r.ncheck is None else f'({r.ncheck})'}: "
+              f"predicted {r.predicted_peak_bytes} B, measured "
+              f"{r.measured_bytes}, NFE-B {r.extra_fevals}: {r.reason}")
+
+    # -- the auto-planned classifier gradient, counted ------------------------
+    # every plan was measured above, so these gradients measure nothing
+    meas0 = model.measurements
+    ops.reset_counts()
+    auto = {}
+    for name, (budget, plan, _) in plans.items():
+        auto[name] = cls_odeint_grads(params, images, labels,
+                                      adjoint="auto", mem_budget=budget,
+                                      fused_stages=True)
+    torch.cuda.synchronize()
+    launches, plain = ops.launches, ops.plain_calls
+    expected = sum(expected_lincomb_calls(CLS["method"], n_t, 1, p.policy,
+                                          p.ncheck)
+                   for _, p, _ in plans.values() if fused(p.policy))
+    check(plain == 0 and launches == expected,
+          f"planner phase: {launches} fused_lincomb launches (expected "
+          f"{expected}), {plain} plain calls")
+    check(model.measurements == meas0,
+          f"the auto gradients measured {model.measurements - meas0} "
+          "candidates again: the measurement cache missed")
+    print(f"planner: {len(plans)} auto-planned classifier gradients, "
+          f"{launches} fused_lincomb launches (expected {expected}), no "
+          "measurement (cache hits)", flush=True)
+    naive = cls_odeint_grads(params, images, labels, adjoint="naive")
+    worst = 0.0
+    for name, (budget, plan, _) in plans.items():
+        loss_a, g_a = auto[name]
+        loss_e, g_e = cls_odeint_grads(
+            params, images, labels, adjoint=plan.policy, ncheck=plan.ncheck,
+            fused_stages=fused(plan.policy))
+        check(torch.equal(bits(loss_a), bits(loss_e))
+              and all(torch.equal(bits(a), bits(b))
+                      for a, b in zip(g_a, g_e)),
+              f"auto gradient at {name} differs from {plan.policy}'s")
+        rel = max(max_abs(a, b) / max(float(b.abs().max()), 1e-12)
+                  for a, b in zip(g_a, naive[1]))
+        check(rel <= CLS_GRAD_TOL, f"auto gradient at {name} vs naive: "
+              f"worst per-leaf max|diff|/max|g| {rel}")
+        worst = max(worst, rel)
+    print(f"planner: every auto gradient BITWISE equal to its explicit "
+          f"policy's; against naive's worst per-leaf max|diff|/max|g| "
+          f"{worst:.3e} (tolerance {CLS_GRAD_TOL})", flush=True)
+
+    # -- one byte under the cheapest in-device candidate: the spill tier -----
+    cands = candidate_costs(method=CLS["method"], n_steps=n_t,
+                            state_bytes=sb, theta_bytes=tb, f_act_bytes=fa)
+    cheapest = min(min(c.peak_bytes, measure(c.policy, c.ncheck,
+                                             n_t)["peak_bytes"])
+                   for c in cands)
+    budget = int(cheapest) - 1
+    plan = plan_odeint(conv_vf, u0, theta, mem_budget=budget,
+                       verify="model", **kw(n_t))
+    check((plan.policy, plan.offload) == ("pnode", "spill"),
+          f"one byte under the cheapest candidate: {plan}")
+    try:
+        cls_odeint_grads(params, images, labels, adjoint="auto",
+                         mem_budget=budget, fused_stages=True)
+    except NotImplementedError as e:
+        check("item 10" in str(e), f"the spill plan raised {e}")
+        refusal = str(e)
+    else:
+        fail(f"odeint(adjoint='auto', mem_budget={budget}) ran; its plan "
+             "offloads")
+    print(f"planner at {budget} B (one under the cheapest in-device "
+          f"candidate, {cheapest} B): pnode + spill; odeint(adjoint='auto') "
+          f"raises: {refusal}", flush=True)
+    gc_collect()
+
+    # -- the Robertson example's --mem-budget, fp64 --------------------------
+    torch.use_deterministic_algorithms(False)  # the adaptive ring write
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = trob.main(["--epochs", "1", "--mem-budget",
+                         str(ROB_PLAN_BUDGET)])
+    line = next(ln for ln in text.getvalue().splitlines()
+                if ln.startswith("planner @"))
+    cpu_lines = []
+    trob.plan_cn(torch.zeros(3, dtype=torch.float64),
+                 mlp_vf_init(torch.Generator().manual_seed(0), 3, hidden=32,
+                             n_hidden=3, device="cpu"),
+                 ROB_PLAN_BUDGET, log=cpu_lines.append)
+    rob_plan = out["plan"]
+    explicit = trob.run(1, adjoint=rob_plan.policy, ncheck=rob_plan.ncheck,
+                        log=lambda *_: None)
+    check(line == cpu_lines[0], f"Robertson plan line on the card {line!r} "
+          f"!= the CPU's {cpu_lines[0]!r}")
+    check(all(s.policy == rob_plan.policy and s.ncheck == rob_plan.ncheck
+              for s in out["losses"].cn_solvers),
+          "the Robertson CN solvers do not run the plan's policy")
+    for key in ("cn", "dopri5"):
+        check(out[key]["losses"] == explicit[key]["losses"]
+              and out[key]["gnorms"] == explicit[key]["gnorms"],
+              f"Robertson {key} epoch 0 under --mem-budget "
+              f"{out[key]['losses']} != explicit {explicit[key]['losses']}")
+    print(f"Robertson --mem-budget {ROB_PLAN_BUDGET} on the card: {line}; "
+          f"epoch-0 CN loss {out['cn']['losses'][0]:.12f}, |g| "
+          f"{out['cn']['gnorms'][0]:.6e}, equal to adjoint="
+          f"{rob_plan.policy!r}, ncheck={rob_plan.ncheck} passed "
+          f"explicitly {card}", flush=True)
+    return dict(state_bytes=sb, theta_bytes=tb, f_activation_bytes=fa,
+                table=table, slope_ratio=ratio,
+                plans={name: dict(budget=b, policy=p.policy, ncheck=p.ncheck,
+                                  measured_bytes=p.measured_bytes,
+                                  window_bytes=w,
+                                  predicted_bytes=p.predicted.peak_bytes)
+                       for name, (b, p, w) in plans.items()},
+                launches=launches, expected=expected, spill_budget=budget,
+                grad_vs_naive=worst, robertson_plan=line)
+
+
 def gc_collect():
     import gc
     import torch
@@ -2436,6 +2753,10 @@ def main():
     ensemble = ensemble_phase(card, dev)
     lap("14 stiff ensemble")
 
+    # -- phase 15: the memory planner at the classifier's width, counted ------
+    planner = planner_phase(card, dev, cls_params, *batches[0])
+    lap("15 memory planner")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -2444,15 +2765,17 @@ def main():
         "source": "src/repro_torch/csrc/lincomb.cu",
         "replaces": "src/repro/kernels/ops.py:71",
         "launches": total_launches + adaptive_point["launches"]
-        + adaptive["launches"],
+        + adaptive["launches"] + planner["launches"],
         "expected_launches": exp_cnf + exp_cls + adaptive_point["expected"]
-        + adaptive["expected"],
+        + adaptive["expected"] + planner["expected"],
         "launches_cnf": cnf_launches,
         "launches_classifier": cls_launches,
         "launches_adaptive_request": adaptive_point["launches"],
         "expected_launches_adaptive_request": adaptive_point["expected"],
         "launches_adaptive_batched": adaptive["launches"],
         "expected_launches_adaptive_batched": adaptive["expected"],
+        "launches_planner": planner["launches"],
+        "expected_launches_planner": planner["expected"],
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -2471,6 +2794,7 @@ def main():
         "adaptive_batched": adaptive,
         "robertson": robertson,
         "stiff_ensemble": ensemble,
+        "memory_planner": planner,
         "card": smi,
     }, {
         "name": "flash_attention",
@@ -2585,6 +2909,7 @@ def main():
         "card": smi,
     }]
     print("phase seconds: " + json.dumps(phase_s), flush=True)
+    print("profiler sessions: " + json.dumps(PROFILER_LOSS), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.time() - t_start:.1f} s")
     print(smi)

@@ -128,40 +128,69 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
     differentiate through the step graph and the kernel has no autograd
     rule.
 
+    ``adjoint="auto"`` with ``mem_budget=<bytes>`` delegates the policy
+    (and ``ncheck``/``offload``) choice to ``repro_torch.mem.planner``;
+    ``mem_verify`` selects how the planner checks the budget ("measure":
+    against one measured gradient a candidate, cached; "model": the
+    analytic Table-2 model only).  With ``adjoint="auto"``,
+    ``ram_budget``/``disk_budget`` bound the spill fallback's RAM and disk
+    footprints.  ``fused_stages`` is dropped silently when the plan picks
+    a policy that cannot run fused.
+
     The signature is the JAX package's.  Checkpoints live on the device
-    (``offload=None`` or ``"device"``); the memory planner
-    (``adjoint="auto"``, ``mem_budget``, ``ram_budget``, ``disk_budget``,
-    ``mem_verify``: ROADMAP Queue 1 item 9), the other offload tiers and
-    their knobs (``offload``, ``offload_segment``, ``snaps_in_ram``,
-    ``offload_dir``, ``offload_store``: item 10) and the flight recorder
-    (``obs``: item 11) raise ``NotImplementedError``.
+    (``offload=None`` or ``"device"``); the other offload tiers and their
+    knobs (``offload``, ``offload_segment``, ``snaps_in_ram``,
+    ``offload_dir``, ``offload_store``, and a plan that offloads: ROADMAP
+    Queue 1 item 10) and the flight recorder (``obs``: item 11) raise
+    ``NotImplementedError``.
     """
     n_steps = int(n_steps)
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if (adjoint == "auto" or mem_budget is not None or ram_budget is not None
-            or disk_budget is not None or mem_verify != "measure"):
-        raise not_ported("odeint", "adjoint='auto' / mem_budget= / "
-                         "ram_budget= / disk_budget= / mem_verify=", 9,
-                         "the memory planner")
+    from_auto = adjoint == "auto"
+    if from_auto:
+        from repro_torch.mem.planner import plan_odeint  # late: import cycle
+        plan = plan_odeint(f, u0, theta, dt=float(dt), n_steps=n_steps,
+                           t0=float(t0), method=method,
+                           mem_budget=mem_budget, ram_budget=ram_budget,
+                           disk_budget=disk_budget, verify=mem_verify,
+                           fused_stages=fused_stages)
+        adjoint, ncheck = plan.policy, plan.ncheck
+        offload = plan.offload if plan.offload is not None else offload
+        if plan.snaps_in_ram is not None and snaps_in_ram is None:
+            snaps_in_ram = plan.snaps_in_ram
+    elif mem_budget is not None:
+        raise ValueError(
+            "mem_budget is only meaningful with adjoint='auto' (the planner "
+            f"chooses the policy); got adjoint={adjoint!r}")
+    elif ram_budget is not None or disk_budget is not None:
+        raise ValueError(
+            "ram_budget/disk_budget are only meaningful with adjoint='auto' "
+            "(the planner solves the snaps_in_ram split); with an explicit "
+            "policy pass offload='spill'/'disk' and snaps_in_ram directly; "
+            f"got adjoint={adjoint!r}")
     if adjoint not in POLICIES:
         raise ValueError(f"unknown adjoint policy {adjoint!r}; one of "
-                         f"{POLICIES}")
+                         f"{POLICIES} (or 'auto' with mem_budget)")
     if offload not in OFFLOAD_TIERS:
         raise ValueError(f"unknown offload tier {offload!r}; one of "
                          f"{OFFLOAD_TIERS}")
     if fused_stages and adjoint not in _FUSED_POLICIES:
-        raise ValueError(
-            f"fused_stages=True is not supported for "
-            f"adjoint={adjoint!r}: that policy differentiates through "
-            "the step graph and the fused stage kernel has no autograd "
-            f"rule; use one of {_FUSED_POLICIES}")
+        if not from_auto:
+            raise ValueError(
+                f"fused_stages=True is not supported for "
+                f"adjoint={adjoint!r}: that policy differentiates through "
+                "the step graph and the fused stage kernel has no autograd "
+                f"rule; use one of {_FUSED_POLICIES}")
+        fused_stages = False
     if offload not in (None, "device") or offload_segment is not None \
             or snaps_in_ram is not None or offload_dir is not None \
             or offload_store is not None:
         raise not_ported("odeint", "offload to the host/spill/disk tiers "
                          "(offload, offload_segment, snaps_in_ram, "
-                         "offload_dir, offload_store)", 10,
+                         "offload_dir, offload_store"
+                         + (f"; the plan's offload={offload!r}"
+                            if from_auto else "") + ")", 10,
                          "the offload tiers")
     if obs is not None:
         raise not_ported("odeint", "obs=", 11, "the flight recorder")

@@ -53,12 +53,17 @@ lane the masked form is bitwise the eager route.
 ImplicitStats)``: ``diverged`` is True if any step exhausted
 ``newton_iters`` with residual > ``newton_tol``.
 
+``odeint_implicit(adjoint="auto", mem_budget=...)`` picks the policy
+and ``ncheck`` through the memory planner (``repro_torch.mem.planner``),
+which forwards the Newton and GMRES settings to its cost model and its
+measured check.
+
 Not ported (they raise ``NotImplementedError``): the host/spill/disk
 checkpoint tiers and their knobs (``offload``, ``offload_segment``,
-``snaps_in_ram``, ``offload_dir``, ``resilient``; ROADMAP Queue 1
-item 10), the memory planner (``adjoint="auto"``, ``mem_budget``; item 9),
-the flight recorder and fault injection (``obs``, ``fault_plan``;
-item 11), and ``rescue=``/``mass=`` in the masked form (item 7c).
+``snaps_in_ram``, ``offload_dir``, ``resilient``, and a plan that
+offloads; ROADMAP Queue 1 item 10), the flight recorder and fault
+injection (``obs``, ``fault_plan``; item 11), and ``rescue=``/``mass=``
+in the masked form (item 7c).
 """
 from __future__ import annotations
 
@@ -402,7 +407,9 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
                     resilient: bool = False) -> PyTree:
     """Fixed-step implicit theta-method solve with a discrete adjoint.
     ``adjoint`` selects the checkpoint policy (``pnode`` dense states /
-    ``revolve`` / ``revolve2``, with ``ncheck`` slots for the last two).
+    ``revolve`` / ``revolve2``, with ``ncheck`` slots for the last two;
+    ``auto`` + ``mem_budget=<bytes>`` delegates to the memory planner,
+    ``mem_verify`` as ``odeint`` takes it).
     Differentiable w.r.t. the tensor leaves of ``u0`` and ``theta_p``.
     ``return_stats=True`` returns ``(u_final, ImplicitStats)`` so Newton
     non-convergence surfaces as ``stats.diverged`` instead of silently
@@ -421,9 +428,24 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
     if mass is not None and (offload is not None or mem_budget is not None
                              or resilient):
         raise _mass_refusal()
-    if adjoint == "auto" or mem_budget is not None or mem_verify != "measure":
-        raise _not_ported("adjoint='auto' / mem_budget= / mem_verify=", 9,
-                          "the memory planner")
+    from_auto = adjoint == "auto"
+    if from_auto:
+        from repro_torch.mem.planner import plan_odeint  # late: import cycle
+        plan = plan_odeint(
+            f, u0, theta_p, dt=float(dt), n_steps=int(n_steps), t0=float(t0),
+            method=method, mem_budget=mem_budget, verify=mem_verify,
+            solver_opts=dict(newton_iters=int(newton_iters),
+                             newton_tol=float(newton_tol),
+                             gmres_iters=int(gmres_iters),
+                             gmres_tol=float(gmres_tol)))
+        adjoint, ncheck = plan.policy, plan.ncheck
+        offload = plan.offload if plan.offload is not None else offload
+        if plan.snaps_in_ram is not None and snaps_in_ram is None:
+            snaps_in_ram = plan.snaps_in_ram
+    elif mem_budget is not None:
+        raise ValueError(
+            "mem_budget is only meaningful with adjoint='auto' (the planner "
+            f"chooses the policy); got adjoint={adjoint!r}")
     if offload not in OFFLOAD_TIERS:
         raise ValueError(f"unknown offload tier {offload!r}; one of "
                          f"{OFFLOAD_TIERS}")
@@ -432,8 +454,9 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
             or resilient:
         raise _not_ported(
             "offload to the host/spill/disk tiers (offload, "
-            "offload_segment, snaps_in_ram, offload_dir, resilient)", 10,
-            "the offload tiers")
+            "offload_segment, snaps_in_ram, offload_dir, resilient"
+            + (f"; the plan's offload={offload!r}" if from_auto else "")
+            + ")", 10, "the offload tiers")
     solver = ImplicitSolver(f, dt=dt, n_steps=n_steps, t0=t0, method=method,
                             adjoint=adjoint, ncheck=ncheck,
                             newton_iters=newton_iters, newton_tol=newton_tol,

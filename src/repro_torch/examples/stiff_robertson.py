@@ -6,7 +6,7 @@ as that one runs (``jax_enable_x64``): the states and the trajectory are
 fp64, the MLP's weights fp32, promoted where they meet the state.
 
   PYTHONPATH=src python -m repro_torch.examples.stiff_robertson \
-      [--epochs 200] [--device cuda|cpu]
+      [--epochs 200] [--device cuda|cpu] [--mem-budget BYTES]
 
 Expected: CN trains stably to low loss; Dopri5's gradient norm is orders of
 magnitude larger / the step count explodes as the learned model stiffens
@@ -14,8 +14,14 @@ magnitude larger / the step count explodes as the learned model stiffens
 own solver, kept across epochs: an ``ImplicitSolver`` for CN and an
 ``AdaptiveSolver`` for Dopri5, each captured as CUDA graphs on the card
 (``capture=False`` in ``run`` runs the same losses eagerly, with bitwise
-equal results).  ``--mem-budget`` (the memory planner's choice of
-checkpoint policy) is not ported.
+equal results).
+
+With ``--mem-budget BYTES`` the CN solves run under the memory planner's
+plan (``plan_odeint`` in model mode, as the JAX example plans them): the
+chosen checkpoint policy and ncheck are printed up front, and every CN
+solver is built with them.  A budget below the smallest in-device
+candidate (2000 bytes) plans the spill tier, which is not ported (ROADMAP
+Queue 1 item 10) and raises.
 """
 from __future__ import annotations
 
@@ -174,16 +180,42 @@ def train(loss_fn, theta, epochs: int, *, log=print):
                 params=params)
 
 
+def plan_cn(y0, theta, mem_budget: int, *, log=print):
+    """The memory planner's plan for one CN solve of the losses under
+    ``mem_budget`` bytes (model mode, the JAX example's arguments), logged
+    as the JAX example prints it.  A plan that offloads raises: the
+    offload tiers are ROADMAP Queue 1 item 10."""
+    from repro_torch.core.adjoint import not_ported
+    from repro_torch.mem.planner import plan_odeint
+    plan = plan_odeint(vector_field, y0, theta, dt=0.5, n_steps=2,
+                       method="cn", mem_budget=mem_budget, verify="model",
+                       solver_opts=dict(newton_iters=CN_KW["newton_iters"],
+                                        gmres_iters=CN_KW["gmres_iters"]))
+    log(f"planner @ {mem_budget} bytes: policy={plan.policy} "
+        f"ncheck={plan.ncheck} offload={plan.offload} "
+        f"predicted_peak={plan.predicted.peak_bytes}B "
+        f"NFE-B={plan.extra_fevals} fits={plan.fits}")
+    if plan.offload is not None:
+        raise not_ported("stiff_robertson --mem-budget",
+                         f"the plan's offload={plan.offload!r}", 10,
+                         "the offload tiers")
+    return plan
+
+
 def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
-        theta=None, capture: bool | None = None, log=print):
+        theta=None, capture: bool | None = None, adjoint: str = "pnode",
+        ncheck: int | None = None, mem_budget: int | None = None,
+        log=print):
     """The example: the truth, then CN and Dopri5 training of ``mlp_vf``
     (``hidden`` wide, 3 hidden layers; ``theta`` overrides the seeded
     weights).  ``capture`` as ``make_losses`` takes it, for the truth
     too; by default on the card only (on the CPU a captured solve runs
     the masked units eagerly, bitwise the eager route and slower).
-    Returns {"cn": ..., "dopri5": ...} as ``train`` returns, the CN
-    solves' ``ImplicitStats`` under "cn_stats", the ``Losses`` under
-    "losses", and the truth."""
+    ``adjoint``/``ncheck`` pick the CN checkpoint policy; ``mem_budget``
+    picks them through ``plan_cn`` instead.  Returns {"cn": ...,
+    "dopri5": ...} as ``train`` returns, the CN solves' ``ImplicitStats``
+    under "cn_stats", the ``Losses`` under "losses", the truth, and the
+    plan (None without ``mem_budget``)."""
     device = resolve_device(device)
     if capture is None:
         capture = device.type == "cuda"
@@ -192,9 +224,14 @@ def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
     if theta is None:
         theta = mlp_vf_init(torch.Generator().manual_seed(seed), 3,
                             hidden=hidden, n_hidden=3, device=device)
+    plan = None
+    if mem_budget is not None:
+        plan = plan_cn(y0, theta, mem_budget, log=log)
+        adjoint, ncheck = plan.policy, plan.ncheck
     cn_stats: list = []
-    losses = make_losses(y0, target, cn_stats=cn_stats, capture=capture)
-    out = dict(ts=ts, truth=y, cn_stats=cn_stats, losses=losses)
+    losses = make_losses(y0, target, adjoint=adjoint, ncheck=ncheck,
+                         cn_stats=cn_stats, capture=capture)
+    out = dict(ts=ts, truth=y, cn_stats=cn_stats, losses=losses, plan=plan)
     for key, name, loss_fn in (("cn", "CN (implicit)", losses.cn),
                                ("dopri5", "Dopri5 (explicit adaptive)",
                                 losses.dopri)):
@@ -213,16 +250,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mem-budget", type=int, default=None,
-                    help="not ported: the memory planner (ROADMAP Queue 1 "
-                         "item 9)")
+                    help="device-byte budget for the CN adjoint: the "
+                         "memory planner picks the CN solvers' policy")
     args = ap.parse_args(argv)
-    if args.mem_budget is not None:
-        raise NotImplementedError(
-            "--mem-budget routes the CN solves through the memory planner "
-            "(adjoint='auto'), which is not ported yet: ROADMAP Queue 1 "
-            "item 9")
     return run(args.epochs, hidden=args.hidden, device=args.device,
-               seed=args.seed)
+               seed=args.seed, mem_budget=args.mem_budget)
 
 
 if __name__ == "__main__":

@@ -226,11 +226,8 @@ def test_ncheck_validated(bad):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(adjoint="auto", mem_budget=10 ** 6), "item 9"),
-    (dict(adjoint="auto"), "item 9"), (dict(mem_budget=10 ** 6), "item 9"),
-    (dict(ram_budget=10 ** 6), "item 9"), (dict(disk_budget=10 ** 6),
-                                           "item 9"),
-    (dict(mem_verify="model"), "item 9"),
+    (dict(adjoint="auto", mem_budget=1), "item 10"),
+    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "item 10"),
     (dict(offload="host"), "item 10"), (dict(offload="spill"), "item 10"),
     (dict(offload="disk"), "item 10"), (dict(offload_segment=2), "item 10"),
     (dict(snaps_in_ram=1), "item 10"), (dict(offload_dir="/x"), "item 10"),
@@ -238,7 +235,8 @@ def test_ncheck_validated(bad):
     (dict(obs=object()), "item 11")])
 def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, item):
     """The reference's memory keywords are taken (not a TypeError) and
-    refused until their module is ported."""
+    refused until their module is ported: a budget under every in-device
+    candidate plans the spill tier (item 10)."""
     u0n, thn = _problem_np()
     args = dict(dt=0.1, n_steps=3)
     args.update(kw)
@@ -250,6 +248,55 @@ def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, item):
             tadj.odeint_with_quadrature(
                 _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),
                 {k: _t(v) for k, v in thn.items()}, **args)
+
+
+@pytest.mark.parametrize("kw", [dict(mem_budget=10 ** 6),
+                                dict(ram_budget=10 ** 6),
+                                dict(disk_budget=10 ** 6)],
+                         ids=["mem_budget", "ram_budget", "disk_budget"])
+def test_odeint_budgets_without_auto_raise_the_references_value_error(kw):
+    u0n, thn = _problem_np()
+    for odeint, f, t in ((tadj.odeint, _tf, _t), (jadj.odeint, _jf,
+                                                  jnp.asarray)):
+        with pytest.raises(ValueError, match="adjoint='auto'"):
+            odeint(f, t(u0n), {k: t(v) for k, v in thn.items()}, dt=0.1,
+                   n_steps=3, **kw)
+
+
+@pytest.mark.parametrize("kw,policy", [
+    (dict(adjoint="auto"), ("pnode", None)),
+    (dict(mem_verify="model"), ("pnode", None)),
+    (dict(adjoint="auto", mem_budget=10 ** 6, mem_verify="model"),
+     ("naive", None)),
+    (dict(adjoint="auto", mem_budget=3_000, mem_verify="model"),
+     ("revolve", 5))],
+    ids=["auto", "mem_verify", "auto-budget", "auto-revolve"])
+def test_odeint_auto_runs_the_references_plan(kw, policy):
+    """``adjoint="auto"`` without a budget is pnode; ``mem_verify`` alone
+    is taken and changes nothing, as in the reference; with a budget the
+    plan is the reference's and the gradient its policy's, bitwise."""
+    from repro.mem.planner import plan_odeint as jplan
+    from repro_torch.mem.planner import plan_odeint as tplan
+    u0n, thn = _problem_np()
+    if "mem_budget" in kw:
+        args = dict(dt=HORIZON / 12, n_steps=12, method="rk4",
+                    mem_budget=kw["mem_budget"], verify="model")
+        for plan_odeint, f, t in ((jplan, _jf, jnp.asarray),
+                                  (tplan, _tf, _t)):
+            plan = plan_odeint(f, t(u0n), {k: t(v) for k, v in thn.items()},
+                               **args)
+            assert (plan.policy, plan.ncheck) == policy
+    kw = dict(kw)
+    a = _port_grads(kw.pop("adjoint", "pnode"), **kw)
+    b = _port_grads(policy[0], ncheck=policy[1])
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if kw == {}:  # adjoint="auto" alone: odeint_with_quadrature forwards it
+        outs = [tadj.odeint_with_quadrature(
+            _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),
+            {k: _t(v) for k, v in thn.items()}, dt=0.1, n_steps=3,
+            adjoint=adjoint) for adjoint in ("auto", "pnode")]
+        assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 @pytest.mark.parametrize("kw,match", [

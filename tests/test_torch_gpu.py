@@ -611,6 +611,76 @@ def test_odeint_gradient_replay_bitwise_eager(cuda, policy):
     assert graph.graph is not None
 
 
+def _planner_case(device):
+    rs = np.random.RandomState(3)
+    u0 = torch.tensor(rs.randn(2048, 64), device=device)
+    th = {"W": torch.tensor(0.1 * rs.randn(64, 64), device=device),
+          "b": torch.tensor(0.1 * rs.randn(64), device=device)}
+
+    def f(u, th, t):
+        return torch.tanh(u @ th["W"] + th["b"]) - 0.2 * u
+
+    return f, u0, th
+
+
+@pytest.mark.parametrize("anchor", [("pnode", None), ("pnode2", None),
+                                    ("revolve", 3)],
+                         ids=["pnode", "pnode2", "revolve3"])
+def test_auto_plan_fits_its_budget_on_the_cuda_allocator(cuda, anchor):
+    """The measured check reads the CUDA allocator; an auto plan at an
+    anchor policy's measured peak fits it, measured again in a window of
+    its own, and its gradient is the chosen policy's bitwise."""
+    from repro_torch.mem import model as tmodel
+    from repro_torch.mem.planner import plan_odeint
+    f, u0, th = _planner_case(cuda)
+    kw = dict(dt=0.05, n_steps=8, method="rk4")
+    m = tmodel.measure_reverse_cost(f, u0, th, policy=anchor[0],
+                                    ncheck=anchor[1], fused_stages=True,
+                                    **kw)
+    assert m["source"] == "cuda_allocator" and m["peak_bytes"] > 0
+    assert m["argument_bytes"] == tmodel.tree_bytes((u0, th))
+    budget = m["peak_bytes"]
+    plan = plan_odeint(f, u0, th, mem_budget=budget, fused_stages=True, **kw)
+    assert plan.offload is None and plan.measured_bytes <= budget
+    before = tmodel.measurements
+    auto = tmodel.reverse_pass(f, u0, th, policy="auto", mem_budget=budget,
+                               fused_stages=True, **kw)
+    assert tmodel.allocator_peak(auto, cuda) <= budget
+    assert tmodel.measurements == before
+    explicit = tmodel.reverse_pass(f, u0, th, policy=plan.policy,
+                                   ncheck=plan.ncheck,
+                                   fused_stages=plan.policy in
+                                   tadj._FUSED_POLICIES, **kw)
+    assert _same_bits(auto(), explicit())
+
+
+def test_auto_gradient_is_measured_in_the_warmup_and_captured(cuda):
+    """StepGraph's eager warm-up fills the measurement cache, so the
+    capture measures nothing; the replay is the eager gradient bitwise."""
+    from repro_torch.mem import model as tmodel
+    f, u0, th = _planner_case(cuda)
+    budget = 4 * tmodel.measure_reverse_cost(
+        f, u0, th, dt=0.05, n_steps=6, policy="pnode2",
+        fused_stages=True)["peak_bytes"]
+
+    def grads(held, copied):
+        a = copied.detach().requires_grad_(True)
+        b = {k: v.detach().requires_grad_(True) for k, v in held.items()}
+        uf = tadj.odeint(f, a, b, dt=0.05, n_steps=6, method="rk4",
+                         adjoint="auto", mem_budget=budget,
+                         fused_stages=True)
+        return list(torch.autograd.grad((uf ** 2).sum(), [a, b["W"],
+                                                          b["b"]]))
+
+    graph = StepGraph(grads, clone_outputs=True)
+    out = graph(th, u0)
+    assert graph.graph is not None
+    before = tmodel.measurements
+    assert _same_bits(out, grads(th, u0))
+    assert _same_bits(graph(th, u0 * 0.5), grads(th, u0 * 0.5))
+    assert tmodel.measurements == before
+
+
 def test_cnf_request_replay_bitwise_eager(cuda):
     theta = ode_nets.cnf_vf_init(torch.Generator().manual_seed(0), 6,
                                  hidden=(32, 32, 32), device=cuda)

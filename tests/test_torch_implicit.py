@@ -278,13 +278,38 @@ def test_cost_model_matches_jax():
     (dict(offload="disk"), "item 10"), (dict(offload_segment=2), "item 10"),
     (dict(snaps_in_ram=1), "item 10"), (dict(offload_dir="/x"), "item 10"),
     (dict(resilient=True), "item 10"),
-    (dict(adjoint="auto", mem_budget=10 ** 6), "item 9"),
-    (dict(mem_budget=10 ** 6), "item 9"),
+    (dict(adjoint="auto", mem_budget=1), "item 10"),
+    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "item 10"),
     (dict(obs=object()), "item 11"), (dict(fault_plan=object()), "item 11")])
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
+    """A budget under every in-device candidate plans the spill tier."""
     u0, th = _problem_np()
     with pytest.raises(NotImplementedError, match=item):
         timp.odeint_implicit(_tf, _t(u0), _t(th), dt=DT, n_steps=N, **kw)
+
+
+def test_mem_budget_without_auto_raises_the_references_value_error():
+    u0, th = _problem_np()
+    def j(tree):
+        return jax.tree_util.tree_map(jnp.asarray, tree)
+
+    for odeint_implicit, f, t in ((timp.odeint_implicit, _tf, _t),
+                                  (jimp.odeint_implicit, _jf, j)):
+        with pytest.raises(ValueError, match="adjoint='auto'"):
+            odeint_implicit(f, t(u0), t(th), dt=DT, n_steps=N,
+                            mem_budget=10 ** 6)
+
+
+@pytest.mark.parametrize("kw", [dict(adjoint="auto"),
+                                dict(mem_verify="model")],
+                         ids=["auto", "mem_verify"])
+def test_auto_without_budget_and_mem_verify_alone_are_pnode(kw):
+    u0, th = _problem_np()
+    a = _port_grads(u0, th, "cn", **kw)
+    b = _port_grads(u0, th, "cn")
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("kw", [dict(lanes=True, rescue=True),

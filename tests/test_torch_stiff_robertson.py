@@ -97,11 +97,52 @@ def test_stiff_robertson_epoch0_matches_the_reference_example():
                                        atol=1e-6 * np.abs(b).max())
 
 
+def _quick_truth(n_pts, device="cpu", capture=False):
+    """A stand-in for the beuler truth (about 15 s on the CPU): the plan
+    depends only on the state's shape and dtype."""
+    s = np.linspace(0.0, 1.0, n_pts)
+    return np.logspace(-5, 2, n_pts), np.stack(
+        [1.0 - 0.3 * s, 3e-5 * np.sin(np.pi * s), 0.3 * s], axis=1)
+
+
 def test_stiff_robertson_cli_refuses_mem_budget_and_needs_a_card(
         monkeypatch):
+    """A 2000-byte budget plans the spill tier (the reference example's
+    documented case), which raises naming its ROADMAP item."""
     from repro_torch.examples import stiff_robertson as trob
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trob.main(["--mem-budget", "400000", "--device", "cpu"])
+    monkeypatch.setattr(trob, "robertson_truth", _quick_truth)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        trob.main(["--mem-budget", "2000", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trob.main(["--epochs", "1"])
+
+
+def test_stiff_robertson_cli_mem_budget_prints_the_references_plan(
+        monkeypatch, capsys):
+    """``--mem-budget 400000`` prints the reference example's plan line
+    (its ``plan_odeint`` call on its own weights and state) and trains
+    under that policy: epoch 0 equals the policy passed explicitly."""
+    from repro.mem.planner import plan_odeint
+    from repro.models.ode_nets import mlp_vf, mlp_vf_init
+    from repro_torch.examples import stiff_robertson as trob
+    monkeypatch.setattr(trob, "robertson_truth", _quick_truth)
+    plan = plan_odeint(mlp_vf, jnp.zeros(3),
+                       mlp_vf_init(jax.random.PRNGKey(0), 3, hidden=32,
+                                   n_hidden=3), dt=0.5, n_steps=2,
+                       method="cn", mem_budget=400000, verify="model",
+                       solver_opts=dict(newton_iters=6, gmres_iters=10))
+    line = (f"planner @ 400000 bytes: policy={plan.policy} "
+            f"ncheck={plan.ncheck} offload={plan.offload} "
+            f"predicted_peak={plan.predicted.peak_bytes}B "
+            f"NFE-B={plan.extra_fevals} fits={plan.fits}")
+    out = trob.main(["--epochs", "1", "--mem-budget", "400000", "--device",
+                     "cpu"])
+    assert line in capsys.readouterr().out.splitlines()
+    assert (out["plan"].policy, out["plan"].ncheck) == (plan.policy,
+                                                        plan.ncheck)
+    assert all(s.policy == plan.policy and s.ncheck == plan.ncheck
+               for s in out["losses"].cn_solvers)
+    ref = trob.run(1, device="cpu", adjoint=plan.policy, ncheck=plan.ncheck,
+                   log=lambda *_: None)
+    assert out["cn"]["losses"] == ref["cn"]["losses"]
