@@ -137,19 +137,32 @@ Phases (any failure exits non-zero, before the last line is printed):
    plan measured within B and again in a window of its own, the
    classifier gradient (counted: ``expected_lincomb_calls`` of each
    plan, no measurement) BITWISE the chosen policy's and within
-   ``CLS_GRAD_TOL`` of naive's; one byte under the cheapest in-device
-   candidate the plan is pnode + spill and the solve raises (ROADMAP
-   Queue 1 item 10); then the Robertson example's ``--mem-budget
-   400000``: its plan line the CPU's, its epoch 0 the explicit policy's;
+   ``CLS_GRAD_TOL`` of naive's; then the Robertson example's
+   ``--mem-budget 400000``: its plan line the CPU's, its epoch 0 the
+   explicit policy's;
+16. the offload tiers (``repro_torch.mem.offload``) at the classifier's
+   width (phase 4's ODE block, rk4, N_t = 16, fused): pnode's gradient
+   on the device, spill, disk and spill with ``snaps_in_ram=8`` tiers
+   and revolve(2) on the device and host tiers, each BITWISE its
+   policy's device tier, with its allocator peak (spill and disk below
+   the device tier's), ms, copies, ``spill_stats()`` and counted
+   launches; the planner one byte under its cheapest in-device
+   candidate: pnode + spill, measured against the budget, the auto
+   classifier gradient BITWISE pnode's; the adaptive CNF batched state at
+   POWER width with its ring on the spill tier, captured, BITWISE phase
+   12's device ring; the Robertson example's ``--mem-budget 2000`` (pnode
+   + spill, the CN solvers eager: ROADMAP Queue 1 item 10a), its CN epoch
+   0 BITWISE phase 15's in-device plan's;
 11. last: one JSON line with each kernel's launches on its main path
-   (which must equal ``expected_lincomb_calls`` (phases 3-4 and 15) +
+   (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
    ``expected_rwkv6_calls``), its error against the plain version and
    its times; then the nvidia-smi line; then the result line.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 3-4, each of phase 12's two eager fused runs and phase 15's
-auto-planned classifier gradients for ``fused_lincomb``, phase 6 for the
+(phases 3-4, each of phase 12's two eager fused runs, phase 15's
+auto-planned classifier gradients and each of phase 16's counted
+gradients for ``fused_lincomb``, phase 6 for the
 flash
 kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
@@ -206,6 +219,10 @@ WRONG_MARGIN = 10   # a deliberately wrong answer must exceed each limit 10x
 # 256-token switch, so every layer's prefill runs the kernel
 RWKV = dict(arch="rwkv6-7b", batch=8, prompt_len=2048, gen=64,
             decode_slice=8)
+
+
+#: results an earlier phase keeps for a later one's comparison
+KEPT = {}
 
 
 def fail(msg):
@@ -1653,6 +1670,8 @@ def adaptive_batched_phase(card, dev, theta, x):
     check(bool(torch.isfinite(d_f).all() and torch.isfinite(s_f).all()),
           "adaptive CNF density/score not finite")
     ring = fused.solver.ring_bytes
+    # phase 16 holds the spill ring's request against these bits
+    KEPT["adaptive_batched"] = (d_f, s_f, info, ring)
     print(f"adaptive ring: {ring} B on the card (predicted max_steps x (1 + 7 "
           f"stages) x {state_bytes} B = {ring_pred} B, + h and t); peak "
           f"allocated above the phase's start {peak} B = "
@@ -2234,8 +2253,8 @@ def planner_phase(card, dev, params, images, labels):
     peaks (the CUDA allocator) beside the Table-2 model and the live
     tensor tracker; the Fig. 3 order and slope contracts; auto plans at
     anchor budgets that fit, measured again in windows of their own, with
-    gradients bitwise the chosen policy's; the spill fallback refused;
-    the Robertson example's ``--mem-budget``."""
+    gradients bitwise the chosen policy's; the Robertson example's
+    ``--mem-budget`` (phase 16 runs the spill fallback)."""
     import contextlib
     import io
     import torch
@@ -2244,7 +2263,7 @@ def planner_phase(card, dev, params, images, labels):
     from repro_torch.examples import stiff_robertson as trob
     from repro_torch.kernels import ops
     from repro_torch.mem import model
-    from repro_torch.mem.planner import candidate_costs, plan_odeint
+    from repro_torch.mem.planner import plan_odeint
     from repro_torch.models.ode_nets import (classifier_apply, conv_vf,
                                              mlp_vf_init)
 
@@ -2402,29 +2421,6 @@ def planner_phase(card, dev, params, images, labels):
           f"policy's; against naive's worst per-leaf max|diff|/max|g| "
           f"{worst:.3e} (tolerance {CLS_GRAD_TOL})", flush=True)
 
-    # -- one byte under the cheapest in-device candidate: the spill tier -----
-    cands = candidate_costs(method=CLS["method"], n_steps=n_t,
-                            state_bytes=sb, theta_bytes=tb, f_act_bytes=fa)
-    cheapest = min(min(c.peak_bytes, measure(c.policy, c.ncheck,
-                                             n_t)["peak_bytes"])
-                   for c in cands)
-    budget = int(cheapest) - 1
-    plan = plan_odeint(conv_vf, u0, theta, mem_budget=budget,
-                       verify="model", **kw(n_t))
-    check((plan.policy, plan.offload) == ("pnode", "spill"),
-          f"one byte under the cheapest candidate: {plan}")
-    try:
-        cls_odeint_grads(params, images, labels, adjoint="auto",
-                         mem_budget=budget, fused_stages=True)
-    except NotImplementedError as e:
-        check("item 10" in str(e), f"the spill plan raised {e}")
-        refusal = str(e)
-    else:
-        fail(f"odeint(adjoint='auto', mem_budget={budget}) ran; its plan "
-             "offloads")
-    print(f"planner at {budget} B (one under the cheapest in-device "
-          f"candidate, {cheapest} B): pnode + spill; odeint(adjoint='auto') "
-          f"raises: {refusal}", flush=True)
     gc_collect()
 
     # -- the Robertson example's --mem-budget, fp64 --------------------------
@@ -2465,8 +2461,271 @@ def planner_phase(card, dev, params, images, labels):
                                   window_bytes=w,
                                   predicted_bytes=p.predicted.peak_bytes)
                        for name, (b, p, w) in plans.items()},
-                launches=launches, expected=expected, spill_budget=budget,
-                grad_vs_naive=worst, robertson_plan=line)
+                launches=launches, expected=expected,
+                grad_vs_naive=worst, robertson_plan=line,
+                robertson_cn={k: out["cn"][k] for k in ("losses", "gnorms")})
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the offload tiers at the classifier's width
+# ---------------------------------------------------------------------------
+
+OFFLOAD_NT = 16            # N_t of the offloaded gradients
+OFFLOAD_SNAPS = 8          # snaps_in_ram of the split spill store
+#: (label, policy, ncheck, odeint keywords): each gradient is held against
+#: the device tier's of its policy, bitwise
+OFFLOAD_CASES = [
+    ("pnode device", "pnode", None, {}),
+    ("pnode spill", "pnode", None, dict(offload="spill")),
+    ("pnode disk", "pnode", None, dict(offload="disk")),
+    (f"pnode spill snaps_in_ram={OFFLOAD_SNAPS}", "pnode", None,
+     dict(offload="spill", snaps_in_ram=OFFLOAD_SNAPS)),
+    ("revolve(2) device", "revolve", 2, {}),
+    ("revolve(2) host", "revolve", 2, dict(offload="host")),
+]
+ROB_SPILL_BUDGET = 2000    # the Robertson example's spill budget
+
+
+def ode_gradient(f, u0, theta, **odeint_kw):
+    """A call that runs one gradient of sum(u_final ** 2) w.r.t. u0 and
+    theta, ``odeint`` over [0, 1] in ``OFFLOAD_NT`` fused rk4 steps with
+    ``odeint_kw`` (the policy and the tier), and returns it."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.adjoint import odeint
+
+    def run():
+        leaves, spec = pytree.tree_flatten((u0, theta))
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        u, th = pytree.tree_unflatten(leaves, spec)
+        uf = odeint(f, u, th, dt=1.0 / OFFLOAD_NT, n_steps=OFFLOAD_NT,
+                    method="rk4", fused_stages=True, **odeint_kw)
+        return torch.autograd.grad(torch.sum(uf * uf), leaves)
+
+    return run
+
+
+def offload_phase(card, dev, params, images, labels, cnf_theta, x,
+                  robertson_cn):
+    """The offload tiers (``repro_torch.mem.offload``) on the card at the
+    §5.1 classifier's width: phase 4's ODE block (state 128 x 32 x 32 x 32
+    fp32, phase 4's seeded weights and first batch), rk4, N_t = 16, fused.
+    Each gradient's allocator peak (a window of its own), wall ms, copies
+    and spill counters, BITWISE equal to its policy's device tier, and
+    counted (``fused_lincomb`` launches = ``expected_lincomb_calls``); the
+    adaptive CNF at POWER width with its ring on the spill tier, captured,
+    BITWISE phase 12's device ring; the planner one byte under its
+    cheapest in-device candidate (pnode + spill, measured against the
+    budget, the auto gradient counted and bitwise pnode's); and the
+    Robertson example's ``--mem-budget 2000`` (its CN epoch 0 bitwise the
+    in-device plan's of phase 15)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.core.adjoint import expected_lincomb_calls
+    from repro_torch.core.cnf import AdaptiveCNF
+    from repro_torch.examples import stiff_robertson as trob
+    from repro_torch.kernels import ops
+    from repro_torch.mem import model, offload
+    from repro_torch.mem.planner import candidate_costs, plan_odeint
+    from repro_torch.models.ode_nets import (classifier_apply, cnf_vf,
+                                             conv_vf)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    gc_collect()
+    box = []
+    with torch.no_grad():  # the ODE block's input, as the classifier makes it
+        classifier_apply(params, images,
+                         odeint_fn=lambda vf, u, th: box.append(u) or u)
+    u0, theta = box[0], params["ode"]
+    sb = model.tree_bytes(u0)
+    disk_dir = ROOT / "build" / "offload"
+    seg = model.default_segment(OFFLOAD_NT)
+    slot = 5 * sb  # rk4: the state and its 4 stages
+    print(f"offload: ODE state {tuple(u0.shape)} {u0.dtype} = {sb} B, rk4 "
+          f"slot {slot} B, N_t = {OFFLOAD_NT}, segment {seg}: "
+          f"{OFFLOAD_NT * slot} B of checkpoints each way", flush=True)
+
+    stores = []
+    make_store = offload.make_store
+
+    def keep(*a, **k):  # every store a gradient makes, for its copies
+        stores.append(make_store(*a, **k))
+        return stores[-1]
+
+    offload.make_store = keep
+    rows, grads, launches, expected = {}, {}, 0, 0
+    try:
+        for label, policy, ncheck, kw in OFFLOAD_CASES:
+            if kw.get("offload") == "disk":
+                kw = dict(kw, offload_dir=str(disk_dir))
+            fn = ode_gradient(conv_vf, u0, theta, adjoint=policy,
+                              ncheck=ncheck, **kw)
+            peak = model.allocator_peak(fn, dev)
+            del stores[:]
+            offload.reset_spill_stats()
+            ops.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n, plain = ops.launches, ops.plain_calls
+            want = expected_lincomb_calls("rk4", OFFLOAD_NT, 1, policy,
+                                          ncheck)
+            check(plain == 0 and n == want,
+                  f"offload {label}: {n} fused_lincomb launches (expected "
+                  f"{want}), {plain} plain calls")
+            launches, expected = launches + n, expected + want
+            stats = offload.spill_stats()
+            copies = {k: sum(st.copies[k] for st in stores)
+                      for k in ("d2h", "h2d")}
+            tiers = sorted({st.effective_tier for st in stores})
+            check(not kw or tiers == [kw["offload"]],
+                  f"offload {label}: the stores ran on {tiers}")
+            if not kw:
+                grads[policy] = g
+            else:
+                check(all(torch.equal(bits(a), bits(b))
+                          for a, b in zip(g, grads[policy])),
+                      f"offload {label}: gradient differs from the device "
+                      "tier's")
+            rows[label] = dict(peak_bytes=peak, ms=ms, launches=n,
+                               copies=copies, stores=len(stores),
+                               spill_stats={k: v for k, v in stats.items()
+                                            if v})
+            print(f"offload {label}: peak {peak} B ({peak / 2**30:.4f} GiB), "
+                  f"{ms:.1f} ms, {n} fused_lincomb launches (expected "
+                  f"{want}), copies {copies}, spill_stats "
+                  f"{rows[label]['spill_stats']}"
+                  + (", gradient BITWISE the device tier's" if kw else "")
+                  + f" {card}", flush=True)
+            del g
+            gc_collect()
+    finally:
+        offload.make_store = make_store
+    dev_peak = rows["pnode device"]["peak_bytes"]
+    for label in ("pnode spill", "pnode disk"):
+        check(rows[label]["peak_bytes"] < dev_peak,
+              f"offload {label}: peak {rows[label]['peak_bytes']} B not "
+              f"below the device tier's {dev_peak} B")
+    sp = rows["pnode spill"]["spill_stats"]
+    check((sp["write_cb"], sp["read_cb"]) == (OFFLOAD_NT // seg,) * 2
+          and sp["write_bytes"] == sp["read_bytes"] == OFFLOAD_NT * slot,
+          f"offload pnode spill transfers {sp}")
+    sp_peak = rows["pnode spill"]["peak_bytes"]
+    print(f"offload: pnode's allocator peak, spill {sp_peak} B / device "
+          f"{dev_peak} B = {sp_peak / dev_peak:.4f}; "
+          f"{sp['write_cb']} + {sp['read_cb']} transfers of "
+          f"{sp['write_bytes']} B each way {card}", flush=True)
+    gc_collect()
+
+    # -- the planner one byte under its cheapest in-device candidate ---------
+    n_t = CLS["n_steps"]
+    kw = dict(dt=1.0 / n_t, n_steps=n_t, method=CLS["method"])
+    cands = candidate_costs(method=CLS["method"], n_steps=n_t,
+                            state_bytes=sb,
+                            theta_bytes=model.tree_bytes(theta),
+                            f_act_bytes=model.f_activation_bytes(
+                                conv_vf, u0, theta))
+    cheapest = min(min(c.peak_bytes, model.measure_reverse_cost(
+        conv_vf, u0, theta, policy=c.policy, ncheck=c.ncheck,
+        fused_stages=c.policy in ("pnode", "pnode2", "revolve", "revolve2"),
+        **kw)["peak_bytes"]) for c in cands)
+    budget = int(cheapest) - 1
+    plan = plan_odeint(conv_vf, u0, theta, mem_budget=budget,
+                       fused_stages=True, **kw)
+    check((plan.policy, plan.offload) == ("pnode", "spill")
+          and plan.measured_bytes is not None,
+          f"one byte under the cheapest candidate: {plan}")
+    meas0 = model.measurements
+    ops.reset_counts()
+    loss_a, g_a = cls_odeint_grads(params, images, labels, adjoint="auto",
+                                   mem_budget=budget, fused_stages=True)
+    torch.cuda.synchronize()
+    n, plain = ops.launches, ops.plain_calls
+    want = expected_lincomb_calls(CLS["method"], n_t, 1, "pnode")
+    check(plain == 0 and n == want and model.measurements == meas0,
+          f"planner spill gradient: {n} launches (expected {want}), "
+          f"{plain} plain, {model.measurements - meas0} measurements")
+    launches, expected = launches + n, expected + want
+    loss_p, g_p = cls_odeint_grads(params, images, labels, adjoint="pnode",
+                                   fused_stages=True)
+    check(torch.equal(bits(loss_a), bits(loss_p))
+          and all(torch.equal(bits(a), bits(b)) for a, b in zip(g_a, g_p)),
+          "the planner's spill gradient differs from pnode's on the device")
+    print(f"planner at {budget} B (one under the cheapest in-device "
+          f"candidate, {cheapest} B): pnode + {plan.offload}, measured "
+          f"{plan.measured_bytes} B against the budget {budget} B "
+          f"({'fits' if plan.fits else 'over'}; predicted "
+          f"{plan.predicted.peak_bytes} B); the auto classifier gradient "
+          f"BITWISE pnode's on the device, {n} launches (expected {want}) "
+          f"{card}", flush=True)
+    gc_collect()
+
+    # -- the adaptive CNF at POWER width, the ring on the spill tier ---------
+    d_ref, s_ref, info_ref, ring_ref = KEPT.pop("adaptive_batched")
+    cnf = AdaptiveCNF(cnf_vf, CNF["dim"], fused_stages=True, capture=True,
+                      offload="spill", **ADAPTIVE)
+    offload.reset_spill_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_s, s_s, info_s = adaptive_request(cnf, cnf_theta, x)
+    torch.cuda.synchronize()
+    a_ms = (time.perf_counter() - t0) * 1e3
+    a_stats = {k: v for k, v in offload.spill_stats().items() if v}
+    ring, slots = cnf.solver.ring_bytes, cnf.solver.ring_slots
+    check(info_s == info_ref and torch.equal(bits(d_s), bits(d_ref))
+          and torch.equal(bits(s_s), bits(s_ref)),
+          "adaptive CNF on the spill ring differs from phase 12's device "
+          f"ring: {info_s} vs {info_ref}, max|diff| {max_abs(d_s, d_ref)}, "
+          f"{max_abs(s_s, s_ref)}")
+    print(f"adaptive CNF batched state, POWER width, captured, ring on the "
+          f"spill tier: BITWISE phase 12's device ring (density and score, "
+          f"{info_s.n_accepted} accepted steps); ring {ring} B "
+          f"({slots} slots) against {ring_ref} B "
+          f"({ADAPTIVE['max_steps']} slots); first call {a_ms:.1f} ms; "
+          f"spill_stats {a_stats} {card}", flush=True)
+    del cnf
+    gc_collect()
+
+    # -- the Robertson example's --mem-budget 2000, fp64 ---------------------
+    torch.use_deterministic_algorithms(False)  # the adaptive ring write
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = trob.main(["--epochs", "1", "--mem-budget",
+                         str(ROB_SPILL_BUDGET)])
+    lines = text.getvalue().splitlines()
+    line = next(ln for ln in lines if ln.startswith("planner @"))
+    check((out["plan"].policy, out["plan"].offload) == ("pnode", "spill")
+          and any("item 10a" in ln for ln in lines),
+          f"Robertson --mem-budget {ROB_SPILL_BUDGET}: {line}")
+    check(all(s.offload == "spill" and not s.masked
+              for s in out["losses"].cn_solvers),
+          "the Robertson CN solvers do not run the spill plan eagerly")
+    check(out["cn"]["losses"] == robertson_cn["losses"]
+          and out["cn"]["gnorms"] == robertson_cn["gnorms"],
+          f"Robertson CN epoch 0 under --mem-budget {ROB_SPILL_BUDGET} "
+          f"{out['cn']['losses']}, |g| {out['cn']['gnorms']} != the "
+          f"in-device plan's {robertson_cn}")
+    print(f"Robertson --mem-budget {ROB_SPILL_BUDGET} on the card: {line}; "
+          f"CN solvers eager (item 10a); epoch-0 CN loss "
+          f"{out['cn']['losses'][0]:.12f}, |g| {out['cn']['gnorms'][0]:.6e}, "
+          f"equal to --mem-budget {ROB_PLAN_BUDGET}'s {card}", flush=True)
+    gc_collect()
+    return dict(n_steps=OFFLOAD_NT, segment=seg, state_bytes=sb,
+                slot_bytes=slot, gradients=rows, launches=launches,
+                expected=expected,
+                planner=dict(budget=budget, cheapest=int(cheapest),
+                             measured_bytes=plan.measured_bytes,
+                             predicted_bytes=plan.predicted.peak_bytes,
+                             fits=plan.fits),
+                adaptive=dict(ring_bytes=ring, ring_slots=slots,
+                              device_ring_bytes=ring_ref, ms=a_ms,
+                              spill_stats=a_stats),
+                robertson_plan=line)
 
 
 def gc_collect():
@@ -2757,6 +3016,11 @@ def main():
     planner = planner_phase(card, dev, cls_params, *batches[0])
     lap("15 memory planner")
 
+    # -- phase 16: the offload tiers at the classifier's width, counted -------
+    offloaded = offload_phase(card, dev, cls_params, *batches[0], cnf_theta,
+                              x, planner.pop("robertson_cn"))
+    lap("16 offload tiers")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -2765,9 +3029,11 @@ def main():
         "source": "src/repro_torch/csrc/lincomb.cu",
         "replaces": "src/repro/kernels/ops.py:71",
         "launches": total_launches + adaptive_point["launches"]
-        + adaptive["launches"] + planner["launches"],
+        + adaptive["launches"] + planner["launches"]
+        + offloaded["launches"],
         "expected_launches": exp_cnf + exp_cls + adaptive_point["expected"]
-        + adaptive["expected"] + planner["expected"],
+        + adaptive["expected"] + planner["expected"]
+        + offloaded["expected"],
         "launches_cnf": cnf_launches,
         "launches_classifier": cls_launches,
         "launches_adaptive_request": adaptive_point["launches"],
@@ -2776,6 +3042,8 @@ def main():
         "expected_launches_adaptive_batched": adaptive["expected"],
         "launches_planner": planner["launches"],
         "expected_launches_planner": planner["expected"],
+        "launches_offload": offloaded["launches"],
+        "expected_launches_offload": offloaded["expected"],
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -2795,6 +3063,7 @@ def main():
         "robertson": robertson,
         "stiff_ensemble": ensemble,
         "memory_planner": planner,
+        "offload": offloaded,
         "card": smi,
     }, {
         "name": "flash_attention",

@@ -28,10 +28,21 @@ t, h and the error norms are 0-d tensors of the state's dtype, so h reaches
 stage update and every adjoint stage recursion through the kernel's scaled
 form.  A CPU state takes the kernel's plain version.
 
-Not ported here (they raise ``NotImplementedError``): the spill and disk
-tiers of the ring (``offload``, ``offload_segment``, ``snaps_in_ram``,
-``offload_dir``; ROADMAP Queue 1 item 10) and the flight recorder and
-fault injection (``obs``, ``fault_plan``; item 11).
+``offload="spill"`` or ``"disk"`` keeps the accepted steps in a
+``repro_torch.mem.offload`` store instead: the device ring shrinks from
+``max_steps`` slots to ``segment + CHECK_EVERY`` (``offload_segment``,
+default ceil(sqrt(max_steps))), the slack for the attempts that run
+between two host reads.  At each read of ``live`` that the host already
+makes, it reads the accepted count in the same copy and ships every full
+segment of the ring with one ``write_batch``, outside any captured graph;
+the steps not yet shipped move to the front of the ring and a device
+offset (``ring_base``) tells the attempt where the next one goes.  The
+last, partial segment goes when the loop ends.  The reverse sweep
+prefetches one segment at a time into the ring, newest first, and replays
+the adjoint step over it.  Gradients are bitwise the device ring's.
+
+Not ported here (they raise ``NotImplementedError``): the flight recorder
+and fault injection (``obs``, ``fault_plan``; ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -122,12 +133,18 @@ def _validate(method, offload, offload_segment, snaps_in_ram, offload_dir,
         raise ValueError(
             f"unknown offload tier {offload!r} for the adaptive ring "
             "buffer; one of (None, 'device', 'spill', 'disk')")
-    if offload in ("spill", "disk") or offload_segment is not None \
-            or snaps_in_ram is not None or offload_dir is not None:
-        raise NotImplementedError(
-            "the adaptive ring's spill/disk tiers (offload='spill'/'disk', "
-            "offload_segment, snaps_in_ram, offload_dir) are not ported "
-            "yet: ROADMAP Queue 1 item 10; the ring lives on the device")
+    if offload_segment is not None and offload not in ("spill", "disk"):
+        raise ValueError(
+            "offload_segment only applies to the spill/disk tiers; got "
+            f"offload={offload!r}")
+    if snaps_in_ram is not None and offload != "spill":
+        raise ValueError(
+            "snaps_in_ram is the spill tier's RAM/disk split "
+            f"(offload='spill'); got offload={offload!r}")
+    if offload_dir is not None and offload not in ("spill", "disk"):
+        raise ValueError(
+            "offload_dir pins the disk tier's segment files "
+            f"(offload='spill'/'disk'); got offload={offload!r}")
     if obs is not None or fault_plan is not None:
         raise NotImplementedError(
             "obs= and fault_plan= (the flight recorder and fault injection) "
@@ -155,8 +172,24 @@ class AdaptiveSolver:
                  rtol: float = 1e-6, atol: float = 1e-6,
                  max_steps: int = 512, h0: float | None = None,
                  method: str = "dopri5", fused_stages: bool = False,
-                 capture: bool = False):
-        _validate(method, None, None, None, None, None, None, max_steps)
+                 capture: bool = False, offload: str | None = None,
+                 offload_segment: int | None = None,
+                 snaps_in_ram: int | None = None,
+                 offload_dir: str | None = None):
+        _validate(method, offload, offload_segment, snaps_in_ram,
+                  offload_dir, None, None, max_steps)
+        #: the tier of the accepted steps: None keeps them in the device
+        #: ring, "spill"/"disk" in a store a recording forward pass
+        self.offload = offload if offload in ("spill", "disk") else None
+        self.store_kw = dict(snaps_in_ram=snaps_in_ram, disk_dir=offload_dir)
+        self.segment = None
+        if self.offload is not None:
+            from repro_torch.mem.offload import default_segment
+            seg = (int(offload_segment) if offload_segment is not None
+                   else default_segment(int(max_steps)))
+            self.segment = max(1, min(seg, int(max_steps)))
+        #: the store of the last recording forward pass (spill/disk)
+        self.store = None
         self.f = f
         self.t0, self.t1 = float(t0), float(t1)
         self.rtol, self.atol = float(rtol), float(atol)
@@ -210,11 +243,22 @@ class AdaptiveSolver:
         self._lam = [torch.zeros_like(x) for x in u_leaves]
         self._mu = [torch.zeros_like(x) for x in th_leaves]
         self._slot = torch.zeros((1,), **count)
+        #: accepted steps shipped to the store (spill/disk): ring slot of
+        #: accepted step n is n - ring_base
+        self._ring_base = torch.zeros((), **count)
+
+    @property
+    def ring_slots(self) -> int:
+        """Slots of the device ring: ``max_steps``, or ``segment +
+        CHECK_EVERY`` (at most ``max_steps``) on the spill/disk tiers."""
+        if self.offload is None:
+            return self.max_steps
+        return min(self.max_steps, self.segment + CHECK_EVERY)
 
     def _alloc_ring(self) -> None:
         if self._ring is not None:
             return
-        m, s = self.max_steps, self.tab.num_stages
+        m, s = self.ring_slots, self.tab.num_stages
         self._ring = dict(
             states=[x.new_zeros((m,) + x.shape) for x in self._u],
             stages=[x.new_zeros((m, s) + x.shape) for x in self._u],
@@ -235,6 +279,8 @@ class AdaptiveSolver:
         held = (self._u, self._th, self._t, self._h, self._err_prev,
                 self._n_acc, self._n_rej, self._live, self._lam, self._mu,
                 self._slot)
+        if self.offload is not None:
+            held += (self._ring_base,)
         return held if key == "attempt" else held + (self._ring,)
 
     def _theta(self):
@@ -282,7 +328,9 @@ class AdaptiveSolver:
 
         take = accept & live
         if record:
-            idx = torch.clamp(self._n_acc, max=self.max_steps - 1).reshape(1)
+            pos = self._n_acc if self.offload is None \
+                else self._n_acc - self._ring_base
+            idx = torch.clamp(pos, max=self.ring_slots - 1).reshape(1)
             ring = self._ring
             rows = [(b, x) for b, x in zip(ring["states"], self._u)]
             rows += [(b, torch.stack([pytree.tree_leaves(k)[j] for k in ks]))
@@ -345,7 +393,10 @@ class AdaptiveSolver:
             graph = self._graph(key, lambda: self._attempt(record))
         self._reset(u_leaves, th_leaves)
         self.replays = 0
-        if graph is None:
+        reps = 1 if graph is None else CHECK_EVERY
+        if record and self.offload is not None:
+            self._spill_loop(graph, reps)
+        elif graph is None:
             while bool(self._live):
                 self._attempt(record)
         else:
@@ -363,6 +414,59 @@ class AdaptiveSolver:
             self._slot.zero_()
             self._graph("adjoint", self._adjoint_step)
         return AdaptiveInfo(n_acc, n_rej, (n_acc + n_rej) * self.tab.num_stages)
+
+    def _spill_loop(self, graph, reps: int) -> None:
+        """The recording loop on the spill/disk tiers: ``reps`` attempts (a
+        replay each when captured) between host reads, and at each read
+        the full segments of the ring shipped to a new store."""
+        from repro_torch.mem.offload import make_store
+        self.store = make_store(self.offload, **self.store_kw)
+        self._ring_base.zero_()
+        shipped = 0
+        held = None if graph is None else self._held("attempt_record")
+        while True:
+            # live and the accepted count in one device-to-host copy
+            live, n_acc = torch.stack(
+                (self._live.to(torch.int64), self._n_acc)).tolist()
+            shipped = self._ship(n_acc, shipped, final=not live)
+            if not live:
+                return
+            for _ in range(reps):
+                if graph is None:
+                    self._attempt(True)
+                else:
+                    graph(held, ())
+            if graph is not None:
+                self.replays += reps
+
+    def _ring_rows(self, m: int):
+        ring = self._ring
+        return (ring["states"] + ring["stages"] + [ring["h"], ring["t"]],
+                [b[:m] for b in ring["states"] + ring["stages"]]
+                + [ring["h"][:m], ring["t"][:m]])
+
+    def _ship(self, n_acc: int, shipped: int, final: bool) -> int:
+        """Ship every full segment of the ring (and, when ``final``, the
+        partial rest) to the store: one ``write_batch`` a segment from ring
+        slots [0, segment), then the steps not shipped move to the front
+        once the copy has read them.  Returns the steps shipped."""
+        from repro_torch.mem.offload import wait_copy
+        seg = self.segment
+        while n_acc - shipped >= seg:
+            bufs, rows = self._ring_rows(seg)
+            wait_copy(self.store.write_batch(shipped, rows))
+            rest = n_acc - shipped - seg
+            for b in bufs:
+                if rest:
+                    src = b[seg:seg + rest]
+                    b[:rest].copy_(src if rest <= seg else src.clone())
+            shipped += seg
+            self._ring_base.fill_(shipped)
+        if final and n_acc > shipped:
+            _, rows = self._ring_rows(n_acc - shipped)
+            wait_copy(self.store.write_batch(shipped, rows))
+            shipped = n_acc
+        return shipped
 
     # -- the reverse sweep -------------------------------------------------------
     def _adjoint_step(self) -> None:
@@ -387,19 +491,35 @@ class AdaptiveSolver:
             buf.add_(x)
         slot.sub_(1)
 
-    def _reverse(self, g_leaves, n_acc: int):
+    def _reverse(self, g_leaves, n_acc: int, store=None):
         graph = self._graphs.get("adjoint") if self.capture else None
         for buf, x in zip(self._lam, g_leaves):
             buf.copy_(x)
         for buf in self._mu:
             buf.zero_()
-        self._slot.fill_(n_acc - 1)
         held = self._held("adjoint")
-        for _ in range(n_acc):
-            if graph is None:
-                self._adjoint_step()
-            else:
-                graph(held, ())
+
+        def sweep(n):
+            for _ in range(n):
+                if graph is None:
+                    self._adjoint_step()
+                else:
+                    graph(held, ())
+
+        if store is None:
+            self._slot.fill_(n_acc - 1)
+            sweep(n_acc)
+        else:
+            # one segment at a time into the ring, newest first; the read
+            # of the next is issued once this one is in hand
+            seg = self.segment
+            for base in reversed(range(0, n_acc, seg)):
+                m = min(seg, n_acc - base)
+                store.prefetch(base, m, out=self._ring_rows(m)[1])
+                if base - seg >= 0:
+                    store.prefetch_issue(base - seg, seg)
+                self._slot.fill_(m - 1)
+                sweep(m)
         return ([x.clone() for x in self._lam], [x.clone() for x in self._mu])
 
     # -- call ------------------------------------------------------------------
@@ -432,6 +552,7 @@ class _AdaptiveFunction(torch.autograd.Function):
                                record=True)
         info_box.append(info)
         ctx.solver, ctx.n_acc = solver, info.n_accepted
+        ctx.store = solver.store if solver.offload is not None else None
         ctx.generation = solver._generation
         return tuple(x.clone() for x in solver._u)
 
@@ -443,7 +564,8 @@ class _AdaptiveFunction(torch.autograd.Function):
                 "odeint_adaptive: the solver ran a later forward pass; run "
                 "each reverse sweep before the solver's next call")
         ctx.generation = None     # one reverse sweep per forward pass
-        lam, mu = solver._reverse(g_leaves, ctx.n_acc)
+        store, ctx.store = ctx.store, None
+        lam, mu = solver._reverse(g_leaves, ctx.n_acc, store)
         return (None, None, *lam, *mu)
 
 
@@ -463,12 +585,17 @@ def odeint_adaptive(f: VectorField, u0: PyTree, theta: PyTree, *,
     runs the stage updates and the adjoint stage recursion through
     ``fused_lincomb`` (its scaled form: h is a device scalar).  One eager
     solve; a caller that solves again and again with the same shapes keeps
-    an ``AdaptiveSolver`` (``capture=True`` replays CUDA graphs).  The
-    ring lives on the device (``offload=None`` or ``"device"``); see the
-    module docstring for the options that are not ported."""
+    an ``AdaptiveSolver`` (``capture=True`` replays CUDA graphs).
+    ``offload="spill"``/``"disk"`` keeps the accepted steps in a store,
+    ``offload_segment`` a transfer (module docstring); ``snaps_in_ram``
+    and ``offload_dir`` are ``odeint``'s.  See the module docstring for
+    the options that are not ported."""
     _validate(method, offload, offload_segment, snaps_in_ram, offload_dir,
               obs, fault_plan, max_steps)
     solver = AdaptiveSolver(f, t0=t0, t1=t1, rtol=rtol, atol=atol,
                             max_steps=max_steps, h0=h0, method=method,
-                            fused_stages=fused_stages)
+                            fused_stages=fused_stages, offload=offload,
+                            offload_segment=offload_segment,
+                            snaps_in_ram=snaps_in_ram,
+                            offload_dir=offload_dir)
     return solver(u0, theta)

@@ -26,8 +26,20 @@ baseline of the paper's Table 2 is implemented:
 Each custom-gradient policy is one ``torch.autograd.Function`` whose tensor
 arguments are the flattened leaves of ``u0`` and ``theta``; the reverse
 sweeps use ``torch.func.vjp``.  Gradients are returned w.r.t. ``u0`` and
-``theta``.  ``t0``/``dt`` are Python floats.  Checkpoints live on the
-device (the revolve store is a plain dict).
+``theta``.  ``t0``/``dt`` are Python floats.
+
+``offload=`` picks where the checkpoints live between the sweeps
+(``repro_torch.mem.offload``).  On the device (None or "device") they are
+the sweeps' lists and dicts of device tensors.  revolve and revolve2 put
+their checkpoints through a store's slots on every tier ("host": pinned
+host tensors; "spill"/"disk": host RAM or segment files).  pnode with
+"spill" or "disk" runs a segmented forward: a device staging buffer of
+``segment`` slots, each (state, N_s stages), filled step by step and
+shipped with one ``write_batch`` when full; the reverse sweep reads one
+segment per ``prefetch``, newest first, and issues the read of the next
+one (``prefetch_issue``) as soon as it holds the current one.  Device
+memory is then O(segment) checkpoints whatever N_t, and the gradients are
+bitwise the device tier's.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ from repro_torch.core.integrators import (
     rk_step,
     solve_fixed,
     tree_add,
+    tree_map,
     tree_scale,
     tree_stack,
     tree_unstack,
@@ -99,8 +112,10 @@ def not_ported(entry: str, what: str, item: str | int,
         f"({name})")
 
 
-#: checkpoint tiers of the JAX package's ``offload=``; the port keeps its
-#: checkpoints on the device (None or "device")
+#: checkpoint tiers of ``offload=`` (``repro_torch.mem.offload``): None and
+#: "device" keep them on the device, "host" in pinned host tensors (the
+#: slot-addressed revolve schedules), "spill" in host RAM and "disk" in
+#: segment files (pnode's segmented sweeps and revolve's slots)
 OFFLOAD_TIERS = (None, "device", "host", "spill", "disk")
 
 
@@ -137,12 +152,15 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
     footprints.  ``fused_stages`` is dropped silently when the plan picks
     a policy that cannot run fused.
 
-    The signature is the JAX package's.  Checkpoints live on the device
-    (``offload=None`` or ``"device"``); the other offload tiers and their
-    knobs (``offload``, ``offload_segment``, ``snaps_in_ram``,
-    ``offload_dir``, ``offload_store``, and a plan that offloads: ROADMAP
-    Queue 1 item 10) and the flight recorder (``obs``: item 11) raise
-    ``NotImplementedError``.
+    ``offload`` ("host", "spill", "disk") moves the checkpoints off the
+    device (module docstring): pnode takes "spill"/"disk" with
+    ``offload_segment`` steps a transfer (default ceil(sqrt(N_t))), revolve
+    and revolve2 take all three.  ``snaps_in_ram`` caps the spill tier's
+    RAM slots (the rest sink to disk files), ``offload_dir`` pins the
+    segment files to a directory, ``offload_store`` passes a caller-owned
+    spill/disk store (pnode).  The signature and the validation are the
+    JAX package's.  The flight recorder (``obs``: ROADMAP Queue 1 item 11)
+    raises ``NotImplementedError``.
     """
     n_steps = int(n_steps)
     if n_steps < 1:
@@ -183,15 +201,9 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
                 "the step graph and the fused stage kernel has no autograd "
                 f"rule; use one of {_FUSED_POLICIES}")
         fused_stages = False
-    if offload not in (None, "device") or offload_segment is not None \
-            or snaps_in_ram is not None or offload_dir is not None \
-            or offload_store is not None:
-        raise not_ported("odeint", "offload to the host/spill/disk tiers "
-                         "(offload, offload_segment, snaps_in_ram, "
-                         "offload_dir, offload_store"
-                         + (f"; the plan's offload={offload!r}"
-                            if from_auto else "") + ")", 10,
-                         "the offload tiers")
+    offload_segment, snaps_in_ram = _validate_offload(
+        adjoint, offload, offload_segment, snaps_in_ram, offload_dir,
+        offload_store)
     if obs is not None:
         raise not_ported("odeint", "obs=", 11, "the flight recorder")
     fused = bool(fused_stages)
@@ -201,8 +213,79 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
         return u_final
     if adjoint in ("revolve", "revolve2"):
         ncheck = _validate_ncheck(adjoint, ncheck, n_steps)
-    solver = _Solver(f, method, t0, dt, n_steps, adjoint, fused, ncheck)
+    store_kw = dict(tier=offload, snaps_in_ram=snaps_in_ram,
+                    disk_dir=offload_dir)
+    segment = None
+    if adjoint == "pnode" and offload in ("spill", "disk"):
+        if offload_store is not None and getattr(
+                offload_store, "tier", None) not in ("spill", "disk"):
+            raise ValueError(
+                "offload_store must be a spill/disk-tier store "
+                "(make_store('spill'|'disk')); got "
+                f"{type(offload_store).__name__}")
+        from repro_torch.mem.offload import default_segment
+        segment = min(offload_segment if offload_segment is not None
+                      else default_segment(n_steps), n_steps)
+        store_kw["store"] = offload_store
+    solver = _Solver(f, method, t0, dt, n_steps, adjoint, fused, ncheck,
+                     store_kw=store_kw, segment=segment)
     return solver(u0, theta)
+
+
+def _validate_offload(adjoint, offload, offload_segment, snaps_in_ram,
+                      offload_dir, offload_store):
+    """The JAX package's checks of the offload knobs (its ``ValueError``s,
+    with the same meaning).  Returns (offload_segment, snaps_in_ram) as
+    ints or None."""
+    offloaded = offload in ("host", "spill", "disk")
+    if offloaded and adjoint not in ("pnode", "revolve", "revolve2"):
+        raise ValueError(
+            f"offload={offload!r} is not supported for adjoint={adjoint!r}: "
+            "only policies with explicit per-step checkpoints (pnode, "
+            "revolve, revolve2) write through the store")
+    if offload_segment is not None:
+        if offload not in ("spill", "disk"):
+            raise ValueError(
+                "offload_segment only applies to the spill/disk tiers; got "
+                f"offload={offload!r}")
+        if adjoint != "pnode":
+            raise ValueError(
+                "offload_segment only applies to the segmented pnode sweep "
+                f"(adjoint='pnode'); adjoint={adjoint!r} checkpoints are "
+                "slot-addressed and already pay one transfer per "
+                "checkpoint-schedule action, so the knob would be silently "
+                "ignored")
+        offload_segment = int(offload_segment)
+        if offload_segment < 1:
+            raise ValueError(
+                f"offload_segment must be >= 1, got {offload_segment}")
+    if snaps_in_ram is not None:
+        if offload != "spill":
+            raise ValueError(
+                "snaps_in_ram is the spill tier's RAM/disk split "
+                "(offload='spill'; offload='disk' is already the "
+                f"snaps_in_ram=0 corner); got offload={offload!r}")
+        snaps_in_ram = int(snaps_in_ram)
+        if snaps_in_ram < 0:
+            raise ValueError(
+                f"snaps_in_ram must be >= 0, got {snaps_in_ram}")
+    if offload_dir is not None and offload not in ("spill", "disk"):
+        raise ValueError(
+            "offload_dir pins the disk tier's segment files "
+            f"(offload='spill'/'disk'); got offload={offload!r}")
+    if offload_store is not None and not (
+            adjoint == "pnode" and offload in ("spill", "disk")):
+        raise ValueError(
+            "offload_store supplies a caller-owned store to the segmented "
+            "pnode spill/disk path only (adjoint='pnode', "
+            f"offload='spill'/'disk'); got adjoint={adjoint!r}, "
+            f"offload={offload!r}")
+    if adjoint == "pnode" and offload == "host":
+        raise ValueError(
+            "offload='host' applies to slot-addressed checkpoint sites "
+            "(revolve/revolve2); the segmented pnode sweep offloads "
+            "through offload='spill' or 'disk'")
+    return offload_segment, snaps_in_ram
 
 
 def nfe_forward(method: str, n_steps: int) -> int:
@@ -340,11 +423,25 @@ def expected_lincomb_calls(method: str, n_steps: int, n_leaves: int,
 class _Solver:
     """Binds one policy's forward/reverse sweeps to the autograd Function."""
 
-    def __init__(self, f, method, t0, dt, n_steps, policy, fused, ncheck):
+    def __init__(self, f, method, t0, dt, n_steps, policy, fused, ncheck,
+                 store_kw=None, segment=None):
         self.f, self.method, self.t0, self.dt = f, method, t0, dt
         self.n_steps, self.policy, self.fused = n_steps, policy, fused
         self.ncheck = ncheck
         self.tab = get_tableau(method)
+        self.store_kw = dict(store_kw or {})
+        #: pnode's steps a transfer on the spill/disk tiers (None: on the
+        #: device)
+        self.segment = segment
+
+    def make_store(self):
+        """A checkpoint store of the solve's tier: the caller's, or a new
+        one (one a forward sweep)."""
+        from repro_torch.mem.offload import make_store  # late: import cycle
+        kw = dict(self.store_kw)
+        store = kw.pop("store", None)
+        return store if store is not None else make_store(kw.pop("tier",
+                                                                 None), **kw)
 
     def __call__(self, u0, theta):
         u_leaves, self.u_spec = pytree.tree_flatten(u0)
@@ -375,6 +472,8 @@ class _Solver:
             u_final, saved = solve_fixed(f, m, u0, theta, t0, dt, n,
                                          save_states=True, fused=fused)
             return u_final, saved["states"]
+        if p == "pnode" and self.segment is not None:
+            return self._pnode_spill_fwd(u0, theta)
         if p == "pnode":
             u_final, saved = solve_fixed(f, m, u0, theta, t0, dt, n,
                                          save_states=True, save_stages=True,
@@ -432,6 +531,8 @@ class _Solver:
                 mu = tree_add(mu, th_bar)
             return lam, mu
 
+        if p == "pnode" and self.segment is not None:
+            return self._pnode_spill_bwd(res, theta, lam, mu)
         if p == "pnode":
             states, stages = res
             for k in reversed(range(n)):
@@ -471,7 +572,7 @@ class _Solver:
     def _revolve_fwd(self, u0, theta):
         positions = [0] + revolve_mod.sweep_checkpoint_positions(
             self.n_steps, self.ncheck)
-        store: dict = {}
+        store = self.make_store()
         u = u0
         bounds = positions + [self.n_steps]
         for a, b in zip(bounds[:-1], bounds[1:]):
@@ -479,7 +580,7 @@ class _Solver:
             u_next, stages_a = rk_step(self.f, self.tab, u, theta,
                                        _t_of(self.t0, self.dt, a), self.dt,
                                        fused=self.fused)
-            store[a] = (u, stages_a)
+            store.put(a, (u, stages_a))
             u = self._advance(u_next, theta, a + 1, b - a - 1)
         return u, store
 
@@ -489,7 +590,7 @@ class _Solver:
             kind = act[0]
             if kind == "advance":
                 _, start, m = act
-                u_s, st_s = store[start]
+                u_s, st_s = store.get(start)
                 # stage-combine restart: u_{start+1} with zero f evaluations
                 u = rk_combine(tab, u_s, tree_unstack(st_s, tab.num_stages),
                                dt, fused=self.fused)
@@ -497,7 +598,7 @@ class _Solver:
                 _, stages_tgt = rk_step(self.f, tab, u, theta,
                                         _t_of(self.t0, dt, start + m), dt,
                                         fused=self.fused)
-                store[start + m] = (u, stages_tgt)
+                store.put(start + m, (u, stages_tgt))
             elif kind == "adjoint":
                 _, idx = act
                 u_i, st_i = store.pop(idx)
@@ -506,7 +607,7 @@ class _Solver:
                                               lam, fused=self.fused)
                 mu = tree_add(mu, th_bar)
             elif kind == "free":
-                store.pop(act[1], None)
+                store.free(act[1])
             else:  # pragma: no cover
                 raise ValueError(act)
         return lam, mu
@@ -518,10 +619,10 @@ class _Solver:
         return list(zip(positions, positions[1:] + [self.n_steps]))
 
     def _revolve2_fwd(self, u0, theta):
-        store: dict = {}
+        store = self.make_store()
         u = u0
         for a, b in self._segment_bounds():
-            store[a] = u
+            store.put(a, u)
             u = self._advance(u, theta, a, b - a)
         return u, store
 
@@ -539,6 +640,68 @@ class _Solver:
                     self.f, self.tab, saved["states"][k], saved["stages"][k],
                     theta, t0 + dt * (a + k), dt, lam, fused=self.fused)
                 mu = tree_add(mu, th_bar)
+        return lam, mu
+
+    # -- pnode on the spill/disk tiers: segmented sweeps ---------------------
+    def _pnode_spill_fwd(self, u0, theta):
+        """pnode's forward sweep with its checkpoints shipped a segment at a
+        time: each step's state and stages are copied into slot i of a
+        device staging buffer (Python-int slicing), and a full segment (or
+        the last, partial one) goes to the store in one ``write_batch``.
+        Before the compute stream writes the next segment into staging, it
+        waits on the copy that reads it."""
+        from repro_torch.mem.offload import wait_copy  # late: import cycle
+        f, tab, t0, dt, n, seg = (self.f, self.tab, self.t0, self.dt,
+                                  self.n_steps, self.segment)
+        s = tab.num_stages
+        store = self.make_store()
+        u, staging, event = u0, None, None
+        for base in range(0, n, seg):
+            m = min(seg, n - base)
+            for i in range(m):
+                ks = rk_stages(f, tab, u, theta, t0 + float(base + i) * dt,
+                               dt, fused=self.fused)
+                u_next = rk_combine(tab, u, ks, dt, fused=self.fused)
+                if staging is None:
+                    staging = (
+                        tree_map(lambda x: x.new_empty((seg,) + x.shape), u),
+                        tree_map(lambda x: x.new_empty((seg, s) + x.shape),
+                                 u))
+                if i == 0:
+                    wait_copy(event)
+                for buf, x in zip(pytree.tree_leaves(staging[0]),
+                                  pytree.tree_leaves(u)):
+                    buf[i].copy_(x)
+                for j, k in enumerate(ks):
+                    for buf, x in zip(pytree.tree_leaves(staging[1]),
+                                      pytree.tree_leaves(k)):
+                        buf[i, j].copy_(x)
+                u = u_next
+            event = store.write_batch(
+                base, tree_map(lambda b: b[:m], staging))
+        return u, store
+
+    def _pnode_spill_bwd(self, store, theta, lam, mu):
+        """pnode's reverse sweep over the stored segments, newest first:
+        one ``prefetch`` a segment, and the read of the next (earlier) one
+        issued right after, so it overlaps this segment's adjoint."""
+        f, tab, t0, dt, n, seg = (self.f, self.tab, self.t0, self.dt,
+                                  self.n_steps, self.segment)
+        n_full, rem = divmod(n, seg)
+        if not rem and n_full:  # warm the pipeline for the first read
+            store.prefetch_issue((n_full - 1) * seg, seg)
+        for base in reversed(range(0, n, seg)):
+            m = min(seg, n - base)
+            states, stages = store.prefetch(base, m)
+            if base - seg >= 0:
+                store.prefetch_issue(base - seg, seg)
+            for i in reversed(range(m)):
+                lam, th_bar = rk_adjoint_step(
+                    f, tab, tree_map(lambda b: b[i], states),
+                    tree_map(lambda b: b[i], stages), theta,
+                    _t_of(t0, dt, base + i), dt, lam, fused=self.fused)
+                mu = tree_add(mu, th_bar)
+            del states, stages
         return lam, mu
 
 

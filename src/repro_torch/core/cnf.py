@@ -116,15 +116,18 @@ class AdaptiveCNF:
     w.r.t. ``x``).  The solver, its ring of accepted steps and, with
     ``capture=True``, its CUDA graphs are kept across calls with one
     shape, dtype and device.  ``fused_stages`` runs the stage updates
-    through ``fused_lincomb``'s scaled form (h a device scalar)."""
+    through ``fused_lincomb``'s scaled form (h a device scalar);
+    ``offload`` and its knobs keep the accepted steps in a store
+    (``AdaptiveSolver``'s)."""
 
     def __init__(self, f: VectorField, dim: int, *, t0: float = 0.0,
                  t1: float = 1.0, rtol: float = 1e-6, atol: float = 1e-6,
                  max_steps: int = 512, fused_stages: bool = False,
-                 capture: bool = False):
+                 capture: bool = False, **offload_kw):
         self.solver = AdaptiveSolver(
             exact_trace_vf(f, dim), t0=t0, t1=t1, rtol=rtol, atol=atol,
-            max_steps=max_steps, fused_stages=fused_stages, capture=capture)
+            max_steps=max_steps, fused_stages=fused_stages, capture=capture,
+            **offload_kw)
 
     def log_prob(self, x: torch.Tensor,
                  theta: PyTree) -> tuple[torch.Tensor, AdaptiveInfo]:

@@ -58,12 +58,20 @@ and ``ncheck`` through the memory planner (``repro_torch.mem.planner``),
 which forwards the Newton and GMRES settings to its cost model and its
 measured check.
 
-Not ported (they raise ``NotImplementedError``): the host/spill/disk
-checkpoint tiers and their knobs (``offload``, ``offload_segment``,
-``snaps_in_ram``, ``offload_dir``, ``resilient``, and a plan that
-offloads; ROADMAP Queue 1 item 10), the flight recorder and fault
-injection (``obs``, ``fault_plan``; item 11), and ``rescue=``/``mass=``
-in the masked form (item 7c).
+``offload=`` moves the checkpoints off the device on the eager route
+(``repro_torch.mem.offload``): pnode with "spill" or "disk" ships the
+converged states a segment at a time (``offload_segment`` steps, default
+ceil(sqrt(N_t))) from a device staging buffer and reads them back one
+segment per ``prefetch``, newest first; revolve and revolve2 put their
+checkpoints through a store's slots ("host", "spill" or "disk").
+``resilient=True`` (pnode with spill/disk) checksums each slot and keeps
+each segment's entry state on the device: a segment whose checked read
+fails is integrated again from that state, bitwise the lost one.
+
+Not ported (they raise ``NotImplementedError``): offload in the masked
+form (``capture=True`` or ``lanes=True``; ROADMAP Queue 1 item 10a), the
+flight recorder and fault injection (``obs``, ``fault_plan``; item 11),
+and ``rescue=``/``mass=`` in the masked form (item 7c).
 """
 from __future__ import annotations
 
@@ -75,8 +83,9 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import revolve as revolve_mod
 from repro_torch.core.adaptive import CHECK_EVERY
-from repro_torch.core.adjoint import (OFFLOAD_TIERS, _validate_ncheck,
-                                      not_ported)
+from repro_torch.core.adjoint import OFFLOAD_TIERS, _validate_ncheck
+from repro_torch.core.adjoint import _validate_offload as _validate_tier_knobs
+from repro_torch.core.adjoint import not_ported
 from repro_torch.core.gmres import GmresCarry, gmres
 from repro_torch.core.gmres import _norm as _lane_norm
 from repro_torch.core.integrators import (
@@ -446,22 +455,14 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
         raise ValueError(
             "mem_budget is only meaningful with adjoint='auto' (the planner "
             f"chooses the policy); got adjoint={adjoint!r}")
-    if offload not in OFFLOAD_TIERS:
-        raise ValueError(f"unknown offload tier {offload!r}; one of "
-                         f"{OFFLOAD_TIERS}")
-    if offload not in (None, "device") or offload_segment is not None \
-            or snaps_in_ram is not None or offload_dir is not None \
-            or resilient:
-        raise _not_ported(
-            "offload to the host/spill/disk tiers (offload, "
-            "offload_segment, snaps_in_ram, offload_dir, resilient"
-            + (f"; the plan's offload={offload!r}" if from_auto else "")
-            + ")", 10, "the offload tiers")
     solver = ImplicitSolver(f, dt=dt, n_steps=n_steps, t0=t0, method=method,
                             adjoint=adjoint, ncheck=ncheck,
                             newton_iters=newton_iters, newton_tol=newton_tol,
                             gmres_iters=gmres_iters, gmres_tol=gmres_tol,
-                            mass=mass, rescue=rescue)
+                            mass=mass, rescue=rescue, offload=offload,
+                            offload_segment=offload_segment,
+                            snaps_in_ram=snaps_in_ram,
+                            offload_dir=offload_dir, resilient=resilient)
     u_final, stats = solver(u0, theta_p)
     return (u_final, stats) if return_stats else u_final
 
@@ -494,6 +495,33 @@ def _odeint_implicit_mass(f, mass, t0, dt, n_steps, theta, newton_iters,
 # the solver: checkpoint policies over one autograd Function, run eagerly or
 # as masked units (captured, and on a lane axis)
 # ---------------------------------------------------------------------------
+
+class _Spilled(NamedTuple):
+    """pnode's residual on the spill/disk tiers: the store, and each
+    segment's entry state by its first step (``resilient`` only)."""
+    store: object
+    starts: dict
+
+
+def _validate_offload(adjoint, offload, offload_segment, snaps_in_ram,
+                      offload_dir, resilient):
+    """The JAX package's checks of the offload knobs of
+    ``odeint_implicit``: ``odeint``'s, and ``resilient`` only with pnode on
+    spill/disk (its ``ValueError``s, with the same meaning).  Returns
+    (offload_segment, snaps_in_ram) as ints or None."""
+    if offload not in OFFLOAD_TIERS:
+        raise ValueError(f"unknown offload tier {offload!r}; one of "
+                         f"{OFFLOAD_TIERS}")
+    if resilient and not (adjoint == "pnode"
+                          and offload in ("spill", "disk")):
+        raise ValueError(
+            "resilient=True (checked prefetch + recompute fallback) applies "
+            "to the segmented spill paths (adjoint='pnode', "
+            f"offload='spill'/'disk'); got adjoint={adjoint!r}, "
+            f"offload={offload!r}")
+    return _validate_tier_knobs(adjoint, offload, offload_segment,
+                                snaps_in_ram, offload_dir, None)
+
 
 def _segment_bounds(n_steps: int, ncheck: int):
     positions = [0] + revolve_mod.sweep_checkpoint_positions(n_steps, ncheck)
@@ -579,7 +607,9 @@ class ImplicitSolver:
     the masked units the buffers hold the last call, so the reverse sweep
     of a call that was followed by another call raises; keep one solver
     per call site of a loss.  ``rescue=`` and ``mass=`` run only on the
-    eager route (ROADMAP Queue 1 item 7c).
+    eager route (ROADMAP Queue 1 item 7c), and so do ``offload``,
+    ``offload_segment``, ``snaps_in_ram``, ``offload_dir`` and
+    ``resilient`` (``odeint_implicit``'s; item 10a).
     """
 
     def __init__(self, f: VectorField, *, dt: float, n_steps: int,
@@ -588,12 +618,16 @@ class ImplicitSolver:
                  newton_iters: int = 10, newton_tol: float = 1e-9,
                  gmres_iters: int = 20, gmres_tol: float = 1e-10,
                  mass=None, rescue=None, capture: bool = False,
-                 lanes: bool = False):
+                 lanes: bool = False, offload: str | None = None,
+                 offload_segment: int | None = None,
+                 snaps_in_ram: int | None = None,
+                 offload_dir: str | None = None, resilient: bool = False):
         n_steps = int(n_steps)
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         theta = _theta_of(method)
-        if mass is not None and (adjoint != "pnode" or rescue is not None):
+        if mass is not None and (adjoint != "pnode" or rescue is not None
+                                 or offload is not None or resilient):
             raise _mass_refusal()
         if adjoint == "naive":
             raise ValueError(
@@ -609,14 +643,31 @@ class ImplicitSolver:
         if rescue is not None and not isinstance(rescue, RescueConfig):
             raise ValueError(f"rescue must be a RescueConfig, True, or None; "
                              f"got {rescue!r}")
+        offload_segment, snaps_in_ram = _validate_offload(
+            adjoint, offload, offload_segment, snaps_in_ram, offload_dir,
+            resilient)
         self.masked = bool(capture) or bool(lanes)
         if self.masked and (rescue is not None or mass is not None):
             raise not_ported(
                 "ImplicitSolver", "rescue= / mass= with lanes=True or "
                 "capture=True", "7c", "the masked Newton loop's rescue "
                 "retries and mass matrix")
+        if self.masked and offload in ("host", "spill", "disk"):
+            raise not_ported(
+                "ImplicitSolver", f"offload={offload!r} with lanes=True or "
+                "capture=True", "10a", "offload in the masked implicit "
+                "form and under lanes")
         if adjoint in ("revolve", "revolve2"):
             ncheck = _validate_ncheck(adjoint, ncheck, n_steps)
+        #: checkpoint tier and its knobs (``repro_torch.mem.offload``)
+        self.offload = offload
+        self.store_kw = dict(snaps_in_ram=snaps_in_ram, disk_dir=offload_dir)
+        self.resilient = bool(resilient)
+        self.segment = None
+        if adjoint == "pnode" and offload in ("spill", "disk"):
+            from repro_torch.mem.offload import default_segment
+            self.segment = min(offload_segment if offload_segment is not None
+                               else default_segment(n_steps), n_steps)
         self.f = f
         self.cfg = _SolverConfig(theta, int(newton_iters), float(newton_tol),
                                  int(gmres_iters), float(gmres_tol),
@@ -769,21 +820,55 @@ class ImplicitSolver:
         return (pytree.tree_leaves(self._lay.unflat(lam.clone()))
                 + [x.clone() for x in mu])
 
+    def make_store(self, integrity: bool = False):
+        from repro_torch.mem.offload import make_store  # late: import cycle
+        return make_store(self.offload, integrity=integrity,
+                          **self.store_kw)
+
     # -- forward sweeps: (u_final, stats, residuals) ---------------------------
     def forward(self, u0, theta_p):
         n, p = self.n_steps, self.policy
+        if p == "pnode" and self.segment is not None:
+            return self._spill_forward(u0, theta_p)
         if p == "pnode":
             u_final, stats, states = self._advance(u0, theta_p, 0, n,
                                                    _stats_zero(), [])
             return u_final, stats, (states, u_final)
         # revolve and revolve2: the forward sweep's checkpoints are the
         # segment boundaries
-        store: dict = {}
+        store = self.make_store()
         u, stats = u0, _stats_zero()
         for a, b in _segment_bounds(n, self.ncheck):
-            store[a] = u
+            store.put(a, u)
             u, stats, _ = self._advance(u, theta_p, a, b - a, stats)
         return u, stats, (store, u)
+
+    def _spill_forward(self, u0, theta_p):
+        """pnode on the spill/disk tiers: each pre-step state is copied into
+        slot i of a device staging buffer, and each segment goes to the
+        store in one ``write_batch``; ``resilient`` keeps each segment's
+        entry state on the device."""
+        from repro_torch.mem.offload import wait_copy
+        n, seg = self.n_steps, self.segment
+        store = self.make_store(integrity=self.resilient)
+        u, stats, staging, event, starts = u0, _stats_zero(), None, None, {}
+        for base in range(0, n, seg):
+            m = min(seg, n - base)
+            if self.resilient:
+                starts[base] = u
+            for i in range(m):
+                if staging is None:
+                    staging = tree_map(
+                        lambda x: x.new_empty((seg,) + tuple(x.shape)), u)
+                if i == 0:
+                    wait_copy(event)
+                for buf, x in zip(pytree.tree_leaves(staging),
+                                  pytree.tree_leaves(u)):
+                    buf[i].copy_(x)
+                u, stats, _ = self._advance(u, theta_p, base + i, 1, stats)
+            event = store.write_batch(base, tree_map(lambda b: b[:m],
+                                                     staging))
+        return u, stats, (_Spilled(store, starts), u)
 
     # -- reverse sweeps: (lam, mu) ---------------------------------------------
     def backward(self, res, theta_p, g):
@@ -798,6 +883,10 @@ class ImplicitSolver:
         def adjoint(lam, mu, u_n, u_next, n):
             return self._adjoint(lam, mu, u_n, u_next, theta_p, n)
 
+        if self.policy == "pnode" and self.segment is not None:
+            spilled, u_final = res
+            return self._spill_backward(spilled, u_final, theta_p, lam, mu,
+                                        adjoint)
         if self.policy == "pnode":
             states, u_final = res
             u_nexts = states[1:] + [u_final]
@@ -817,15 +906,16 @@ class ImplicitSolver:
                 kind = act[0]
                 if kind == "advance":
                     _, start, m = act
-                    u, _, _ = self._advance(store[start], theta_p, start, m)
-                    store[start + m] = u
+                    u, _, _ = self._advance(store.get(start), theta_p, start,
+                                            m)
+                    store.put(start + m, u)
                 elif kind == "adjoint":
                     _, idx = act
                     u_i = store.pop(idx)
                     lam, mu = adjoint(lam, mu, u_i, u_next, idx)
                     u_next = u_i
                 elif kind == "free":
-                    store.pop(act[1], None)
+                    store.free(act[1])
                 else:  # pragma: no cover
                     raise ValueError(act)
             return lam, mu
@@ -837,6 +927,40 @@ class ImplicitSolver:
             u_nexts = states[1:] + [u_b]
             for k in reversed(range(b - a)):
                 lam, mu = adjoint(lam, mu, states[k], u_nexts[k], a + k)
+        return lam, mu
+
+    def _spill_backward(self, spilled, u_final, theta_p, lam, mu, adjoint):
+        """The reverse sweep over the stored segments, newest first: one
+        ``prefetch`` a segment, the next one's read issued right after.
+        ``resilient``: a checked read instead, and a segment that fails it
+        is integrated again from its entry state (the same steps in the
+        same order, so the same states bitwise)."""
+        store, starts = spilled
+        n, seg = self.n_steps, self.segment
+        n_full, rem = divmod(n, seg)
+        if not rem and n_full and not self.resilient:
+            store.prefetch_issue((n_full - 1) * seg, seg)
+        u_next = u_final
+        for base in reversed(range(0, n, seg)):
+            m = min(seg, n - base)
+            if self.resilient:
+                ok, stacked = store.prefetch_checked(base, m)
+                if ok:
+                    states = [tree_map(lambda b: b[i], stacked)
+                              for i in range(m)]
+                else:
+                    _, _, states = self._advance(starts[base], theta_p, base,
+                                                 m, states=[])
+            else:
+                stacked = store.prefetch(base, m)
+                if base - seg >= 0:
+                    store.prefetch_issue(base - seg, seg)
+                states = [tree_map(lambda b: b[i], stacked)
+                          for i in range(m)]
+            u_nexts = states[1:] + [u_next]
+            for k in reversed(range(m)):
+                lam, mu = adjoint(lam, mu, states[k], u_nexts[k], base + k)
+            u_next = states[0]
         return lam, mu
 
     # -- the two primitives the sweeps run -------------------------------------

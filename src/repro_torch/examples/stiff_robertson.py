@@ -20,8 +20,10 @@ With ``--mem-budget BYTES`` the CN solves run under the memory planner's
 plan (``plan_odeint`` in model mode, as the JAX example plans them): the
 chosen checkpoint policy and ncheck are printed up front, and every CN
 solver is built with them.  A budget below the smallest in-device
-candidate (2000 bytes) plans the spill tier, which is not ported (ROADMAP
-Queue 1 item 10) and raises.
+candidate (2000 bytes) plans pnode on the spill tier: the CN solvers then
+run on the eager route (offload in the captured implicit form is ROADMAP
+Queue 1 item 10a, and the example says so), with the same epoch-0 loss
+and gradient, bitwise, as an in-device plan.
 """
 from __future__ import annotations
 
@@ -98,19 +100,23 @@ class Losses(NamedTuple):
 
 def make_losses(y0, target, *, adjoint: str = "pnode",
                 ncheck: int | None = None, cn_stats: list | None = None,
-                capture: bool = True) -> Losses:
+                capture: bool = True, offload: str | None = None,
+                snaps_in_ram: int | None = None) -> Losses:
     """The two training losses (MAE over the observation points, paper
     eq. 15): fixed-step CN over the scaled pseudo-time horizon, matching
     the observation points, and adaptive Dopri5 over the same intervals.
-    ``adjoint``/``ncheck`` pick the CN checkpoint policy; each CN solve's
-    ``ImplicitStats`` is appended to ``cn_stats`` when given.  Each
-    interval has its own solver (a solver's buffers hold its last call,
-    and the losses chain 19 calls before the reverse sweep); ``capture``
-    replays CUDA graphs on the card."""
+    ``adjoint``/``ncheck`` pick the CN checkpoint policy and ``offload``/
+    ``snaps_in_ram`` its tier (an offloading CN solver runs on the eager
+    route); each CN solve's ``ImplicitStats`` is appended to ``cn_stats``
+    when given.  Each interval has its own solver (a solver's buffers hold
+    its last call, and the losses chain 19 calls before the reverse
+    sweep); ``capture`` replays CUDA graphs on the card."""
     n_obs = target.shape[0]
+    cn_capture = capture and offload in (None, "device")
     cn_solvers = [ImplicitSolver(vector_field, dt=0.5, n_steps=2,
                                  t0=float(k), adjoint=adjoint, ncheck=ncheck,
-                                 capture=capture, **CN_KW)
+                                 capture=cn_capture, offload=offload,
+                                 snaps_in_ram=snaps_in_ram, **CN_KW)
                   for k in range(n_obs - 1)]
     dopri_solvers = [AdaptiveSolver(vector_field, t0=float(k),
                                     t1=float(k + 1), rtol=1e-6, atol=1e-6,
@@ -183,9 +189,7 @@ def train(loss_fn, theta, epochs: int, *, log=print):
 def plan_cn(y0, theta, mem_budget: int, *, log=print):
     """The memory planner's plan for one CN solve of the losses under
     ``mem_budget`` bytes (model mode, the JAX example's arguments), logged
-    as the JAX example prints it.  A plan that offloads raises: the
-    offload tiers are ROADMAP Queue 1 item 10."""
-    from repro_torch.core.adjoint import not_ported
+    as the JAX example prints it."""
     from repro_torch.mem.planner import plan_odeint
     plan = plan_odeint(vector_field, y0, theta, dt=0.5, n_steps=2,
                        method="cn", mem_budget=mem_budget, verify="model",
@@ -195,10 +199,6 @@ def plan_cn(y0, theta, mem_budget: int, *, log=print):
         f"ncheck={plan.ncheck} offload={plan.offload} "
         f"predicted_peak={plan.predicted.peak_bytes}B "
         f"NFE-B={plan.extra_fevals} fits={plan.fits}")
-    if plan.offload is not None:
-        raise not_ported("stiff_robertson --mem-budget",
-                         f"the plan's offload={plan.offload!r}", 10,
-                         "the offload tiers")
     return plan
 
 
@@ -212,7 +212,7 @@ def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
     too; by default on the card only (on the CPU a captured solve runs
     the masked units eagerly, bitwise the eager route and slower).
     ``adjoint``/``ncheck`` pick the CN checkpoint policy; ``mem_budget``
-    picks them through ``plan_cn`` instead.  Returns {"cn": ...,
+    picks them (and the tier) through ``plan_cn`` instead.  Returns {"cn": ...,
     "dopri5": ...} as ``train`` returns, the CN solves' ``ImplicitStats``
     under "cn_stats", the ``Losses`` under "losses", the truth, and the
     plan (None without ``mem_budget``)."""
@@ -224,13 +224,18 @@ def run(epochs: int, *, hidden: int = 32, device="cuda", seed: int = 0,
     if theta is None:
         theta = mlp_vf_init(torch.Generator().manual_seed(seed), 3,
                             hidden=hidden, n_hidden=3, device=device)
-    plan = None
+    plan, offload, snaps_in_ram = None, None, None
     if mem_budget is not None:
         plan = plan_cn(y0, theta, mem_budget, log=log)
         adjoint, ncheck = plan.policy, plan.ncheck
+        offload, snaps_in_ram = plan.offload, plan.snaps_in_ram
+        if offload is not None:
+            log(f"CN solvers run on the eager route: offload={offload!r} "
+                "in the captured implicit form is ROADMAP Queue 1 item 10a")
     cn_stats: list = []
     losses = make_losses(y0, target, adjoint=adjoint, ncheck=ncheck,
-                         cn_stats=cn_stats, capture=capture)
+                         cn_stats=cn_stats, capture=capture, offload=offload,
+                         snaps_in_ram=snaps_in_ram)
     out = dict(ts=ts, truth=y, cn_stats=cn_stats, losses=losses, plan=plan)
     for key, name, loss_fn in (("cn", "CN (implicit)", losses.cn),
                                ("dopri5", "Dopri5 (explicit adaptive)",

@@ -7,10 +7,9 @@ Prop. 2); this package makes the tuning automatic:
            its ground truth, one gradient's peak measured on the device;
   planner  ``plan_odeint``: the cheapest reverse-accurate policy under a
            byte budget (drives ``odeint(adjoint="auto", mem_budget=...)``)
-           and ``plan_depth_remat`` for the LM stack.
-
-The checkpoint stores of the JAX package's ``mem/offload.py`` are ROADMAP
-Queue 1 item 10.
+           and ``plan_depth_remat`` for the LM stack;
+  offload  the checkpoint stores (device, pinned host, spill, disk) that
+           ``offload=`` and a plan that spills run on.
 """
 from repro_torch.mem.model import (CostEstimate, f_activation_bytes,
                                    max_fitting_ncheck, measure_reverse_cost,

@@ -33,7 +33,9 @@ inputs give the same integers.  Two parts are the port's own:
   ``f`` evaluation, run on meta copies of the inputs (no memory, no time);
 - ``measure_reverse_cost``, the model's ground truth, runs one gradient
   and reads its peak from the CUDA caching allocator on the card, or from
-  a live-tensor tracker on the CPU.
+  a live-tensor tracker on the CPU.  With ``offload`` the gradient runs on
+  that tier: the checkpoints then sit in host memory (pinned tensors,
+  numpy arrays or files), which neither reading counts.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import revolve as revolve_mod
 from repro_torch.core.adjoint import (_FUSED_POLICIES, checkpoint_floats,
-                                      nfe_backward, not_ported)
+                                      nfe_backward)
 from repro_torch.core.implicit import (IMPLICIT_POLICIES,
                                        implicit_checkpoint_floats,
                                        implicit_nfe_backward,
@@ -419,12 +421,14 @@ def reverse_pass(f: Callable, u0: PyTree, theta: PyTree, *, dt: float,
                  loss_fn: Optional[Callable] = None,
                  solver_opts: Optional[Dict[str, Any]] = None,
                  fused_stages: bool = False,
-                 mem_budget: Optional[int] = None
+                 mem_budget: Optional[int] = None,
+                 offload: Optional[str] = None
                  ) -> Callable[[], Tuple[torch.Tensor, ...]]:
     """A call that runs one gradient of ``loss_fn(u_final)`` (default: the
     sum of squares of ``u_final``) w.r.t. the floating leaves of ``u0`` and
     ``theta``, taken as new leaves on their storage, and returns it.
-    ``policy="auto"`` with ``mem_budget`` solves through the planner."""
+    ``policy="auto"`` with ``mem_budget`` solves through the planner;
+    ``offload`` is the solve's checkpoint tier."""
     from repro_torch.core.adjoint import odeint  # late: import cycle
     from repro_torch.core.implicit import odeint_implicit
 
@@ -441,11 +445,12 @@ def reverse_pass(f: Callable, u0: PyTree, theta: PyTree, *, dt: float,
                 uf = odeint_implicit(f, u0_, th_, dt=dt, n_steps=n_steps,
                                      t0=t0, method=method, adjoint=policy,
                                      ncheck=ncheck, mem_budget=mem_budget,
-                                     **(solver_opts or {}))
+                                     offload=offload, **(solver_opts or {}))
             else:
                 uf = odeint(f, u0_, th_, dt=dt, n_steps=n_steps, t0=t0,
                             method=method, adjoint=policy, ncheck=ncheck,
-                            mem_budget=mem_budget, fused_stages=fused_stages)
+                            mem_budget=mem_budget, fused_stages=fused_stages,
+                            offload=offload)
             if loss_fn is not None:
                 loss = loss_fn(uf)
             else:
@@ -498,6 +503,10 @@ def measure_reverse_cost(f: Callable, u0: PyTree, theta: PyTree, *,
       on the CPU   ``source="live_tensors"``: the most bytes of tensor
                    storage live at once (``LiveTensors``).
 
+    ``offload`` ("host", "spill", "disk") runs the gradient on that
+    checkpoint tier: the device staging buffer and the prefetched segment
+    count, the host copies (pinned tensors, numpy arrays, files) do not.
+
     ``argument_bytes`` are the bytes of ``u0`` and ``theta``.
     ``loss_fn(u_final) -> scalar`` measures the caller's loss; the default
     is the sum-of-squares surrogate.  ``solver_opts`` (newton_iters,
@@ -510,12 +519,8 @@ def measure_reverse_cost(f: Callable, u0: PyTree, theta: PyTree, *,
     with strong references to f and loss_fn, so a planner's walk measures
     each candidate once a process.  A miss while a CUDA graph is capturing
     raises ``RuntimeError``: measure before the capture (``StepGraph``'s
-    eager warm-up does).  Offload tiers other than the device raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 10)."""
+    eager warm-up does)."""
     global measurements
-    if offload not in (None, "device"):
-        raise not_ported("measure_reverse_cost", f"offload={offload!r}", 10,
-                         "the offload tiers")
     fused = bool(fused_stages) and policy in _FUSED_POLICIES \
         and not is_implicit_method(method)
     device = _device_of((u0, theta))
@@ -523,7 +528,8 @@ def measure_reverse_cost(f: Callable, u0: PyTree, theta: PyTree, *,
         tuple(sorted(solver_opts.items()))
     key = (id(f), None if loss_fn is None else id(loss_fn), _struct_key(u0),
            _struct_key(theta), str(device), float(dt), int(n_steps),
-           float(t0), method, policy, ncheck, opts_key, fused)
+           float(t0), method, policy, ncheck, opts_key, fused,
+           None if offload == "device" else offload)
     hit = _MEASURE_CACHE.get(key)
     if hit is not None:
         return hit[1]
@@ -537,7 +543,8 @@ def measure_reverse_cost(f: Callable, u0: PyTree, theta: PyTree, *,
     fn = reverse_pass(f, u0, theta, dt=float(dt), n_steps=int(n_steps),
                       t0=float(t0), method=method, policy=policy,
                       ncheck=ncheck, loss_fn=loss_fn,
-                      solver_opts=solver_opts, fused_stages=fused)
+                      solver_opts=solver_opts, fused_stages=fused,
+                      offload=offload)
     if device.type == "cuda":
         peak, source = allocator_peak(fn, device), "cuda_allocator"
     else:

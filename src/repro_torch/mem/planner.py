@@ -15,9 +15,9 @@ metric does not see, so it never outranks an in-device policy that fits.
 When the plan offloads, ``ram_budget`` / ``disk_budget`` bound the
 off-device media: the planner solves the ``snaps_in_ram`` split (slots
 over the RAM cap sink to disk; ``offload="disk"`` when no slot fits RAM).
-The port's solvers keep their checkpoints on the device, so a plan that
-offloads is returned as it is and refused where it would run (ROADMAP
-Queue 1 item 10).
+In measure mode the fallback is measured on its tier
+(``measure_reverse_cost(offload=...)``), and ``odeint(adjoint="auto")``
+runs the plan it returns (``repro_torch.mem.offload``).
 
 Two verify modes:
 

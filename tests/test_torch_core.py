@@ -225,29 +225,60 @@ def test_ncheck_validated(bad):
         _port_grads("revolve", ncheck=bad)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(adjoint="auto", mem_budget=1), "item 10"),
-    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "item 10"),
-    (dict(offload="host"), "item 10"), (dict(offload="spill"), "item 10"),
-    (dict(offload="disk"), "item 10"), (dict(offload_segment=2), "item 10"),
-    (dict(snaps_in_ram=1), "item 10"), (dict(offload_dir="/x"), "item 10"),
-    (dict(offload_store=object()), "item 10"),
-    (dict(obs=object()), "item 11")])
-def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, item):
-    """The reference's memory keywords are taken (not a TypeError) and
-    refused until their module is ported: a budget under every in-device
-    candidate plans the spill tier (item 10)."""
+#: (keywords, what happens): a budget under every in-device candidate
+#: plans pnode on the spill tier, which runs; a tier knob without its tier
+#: is the reference's ValueError; obs= is still refused (item 11).  The
+#: ids are the cases' ids from when every memory keyword was refused.
+MEMORY_KEYWORD_CASES = [
+    (dict(adjoint="auto", mem_budget=1), "runs"),
+    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "runs"),
+    (dict(offload="host"), "offload='host' applies"),
+    (dict(offload="spill"), "runs"), (dict(offload="disk"), "runs"),
+    (dict(offload_segment=2), "offload_segment only applies"),
+    (dict(snaps_in_ram=1), "snaps_in_ram is the spill tier"),
+    (dict(offload_dir="/x"), "offload_dir pins"),
+    (dict(offload_store=object()), "offload_store supplies"),
+    (dict(obs=object()), "item 11")]
+
+
+@pytest.mark.parametrize(
+    "kw,outcome", MEMORY_KEYWORD_CASES,
+    ids=[f"kw{i}-item {11 if i == 9 else 10}" for i in range(10)])
+def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, outcome):
+    """The reference's memory keywords: the offload tiers and a plan that
+    spills run, bitwise pnode's gradient on the device tier (the
+    quadrature form too); a knob without its tier raises the reference's
+    ValueError, as the JAX package does; obs= names its ROADMAP item."""
     u0n, thn = _problem_np()
     args = dict(dt=0.1, n_steps=3)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tadj.odeint(_tf, _t(u0n), {k: _t(v) for k, v in thn.items()},
-                    **args)
+    if outcome == "item 11":
+        with pytest.raises(NotImplementedError, match=outcome):
+            tadj.odeint(_tf, _t(u0n), {k: _t(v) for k, v in thn.items()},
+                        **args)
+        return
+    if outcome != "runs":
+        jkw = {k: v for k, v in kw.items() if k != "offload_store"}
+        if "offload_store" in kw:
+            from repro.mem.offload import make_store
+            jkw["offload_store"] = make_store("host")
+        for odeint, f, t, kws in ((tadj.odeint, _tf, _t, kw),
+                                  (jadj.odeint, _jf, jnp.asarray, jkw)):
+            with pytest.raises(ValueError, match=outcome):
+                odeint(f, t(u0n), {k: t(v) for k, v in thn.items()},
+                       dt=0.1, n_steps=3, **kws)
+        return
+    kw = dict(kw)
+    a = _port_grads(kw.pop("adjoint", "pnode"), dt=0.1, n_steps=3, **kw)
+    b = _port_grads("pnode", dt=0.1, n_steps=3)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     if "offload" in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            tadj.odeint_with_quadrature(
-                _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),
-                {k: _t(v) for k, v in thn.items()}, **args)
+        outs = [tadj.odeint_with_quadrature(
+            _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),
+            {k: _t(v) for k, v in thn.items()}, dt=0.1, n_steps=3,
+            offload=offload) for offload in (kw["offload"], None)]
+        assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 @pytest.mark.parametrize("kw", [dict(mem_budget=10 ** 6),

@@ -21,7 +21,11 @@ the refusals (a changed held tensor, a capture that fails); adaptive
 Dopri5 (``fused_lincomb``'s scaled form at the adaptive CNF's leaf
 shapes, the adaptive CNF request fused == unfused and captured == eager
 bitwise, with the expected launches) and the implicit theta-method (the
-three policies bitwise equal), each against the port's CPU run in fp64.
+three policies bitwise equal), each against the port's CPU run in fp64;
+and the offload tiers (every tier's gradient bitwise its device tier's
+with its copies made on the card, the spill peak below the device
+tier's, the planner's spill fallback, the adaptive ring and the eager
+implicit route on spill/disk/host).
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -1022,6 +1026,178 @@ def test_implicit_reverse_over_overwritten_buffers_raises(cuda):
         torch.autograd.grad(uf1.sum(), [u1])
     g2, = torch.autograd.grad(uf2.sum(), [u2])
     assert bool(torch.isfinite(g2).all())
+
+
+# ---------------------------------------------------------------------------
+# the offload tiers (repro_torch.mem.offload): copies on the copy stream
+# ---------------------------------------------------------------------------
+
+OFFLOAD_GPU_CASES = [
+    ("pnode", None, dict(offload="spill")),
+    ("pnode", None, dict(offload="disk")),
+    ("pnode", None, dict(offload="spill", snaps_in_ram=2)),
+    ("pnode", None, dict(offload="spill", offload_segment=3)),
+    ("revolve", 3, dict(offload="host")),
+    ("revolve", 3, dict(offload="spill")),
+    ("revolve2", 3, dict(offload="host")),
+    ("revolve2", 3, dict(offload="disk")),
+]
+
+
+def _kept_stores(monkeypatch):
+    from repro_torch.mem import offload
+    stores, make = [], offload.make_store
+
+    def keep(*a, **k):
+        stores.append(make(*a, **k))
+        return stores[-1]
+
+    monkeypatch.setattr(offload, "make_store", keep)
+    return stores
+
+
+@pytest.mark.parametrize(
+    "policy,ncheck,kw", OFFLOAD_GPU_CASES,
+    ids=[f"{p}-" + "-".join(f"{k}={v}" for k, v in kw.items())
+         for p, _, kw in OFFLOAD_GPU_CASES])
+def test_offload_tiers_bitwise_the_device_tier_on_the_card(
+        cuda, policy, ncheck, kw, monkeypatch, tmp_path):
+    """Every tier's fused gradient equals the device tier's bitwise on the
+    card, with the device tier's launches, and its store copied both ways
+    on the card (no silent fallback to the device)."""
+    f, u0, th = _planner_case(cuda)
+    if kw.get("offload") == "disk":
+        kw = dict(kw, offload_dir=str(tmp_path))
+
+    def grads(**k):
+        a = u0.detach().requires_grad_(True)
+        b = {n: v.detach().requires_grad_(True) for n, v in th.items()}
+        uf = tadj.odeint(f, a, b, dt=0.05, n_steps=10, method="rk4",
+                         adjoint=policy, ncheck=ncheck, fused_stages=True,
+                         **k)
+        return list(torch.autograd.grad((uf ** 2).sum(), [a, b["W"],
+                                                          b["b"]]))
+
+    stores = _kept_stores(monkeypatch)
+    ops.reset_counts()
+    got = grads(**kw)
+    torch.cuda.synchronize()
+    assert ops.plain_calls == 0 and ops.launches == \
+        tadj.expected_lincomb_calls("rk4", 10, 1, policy, ncheck)
+    assert [st.effective_tier for st in stores] == [kw["offload"]]
+    assert stores[0].copies["d2h"] > 0 and stores[0].copies["h2d"] > 0
+    assert _same_bits(got, grads())
+
+
+def test_offload_spill_peak_is_below_the_device_tiers(cuda):
+    """pnode at N_t = 16: the spill tier's allocator peak holds two
+    segments (staging and a prefetched one) where the device tier holds
+    all 16 steps' checkpoints; the host copies are not CUDA storage."""
+    from repro_torch.mem import model as tmodel
+    f, u0, th = _planner_case(cuda)
+    kw = dict(dt=0.05, n_steps=16, method="rk4", policy="pnode",
+              fused_stages=True)
+    device = tmodel.measure_reverse_cost(f, u0, th, **kw)["peak_bytes"]
+    slot = 5 * tmodel.tree_bytes(u0)
+    for tier in ("spill", "disk"):
+        peak = tmodel.measure_reverse_cost(f, u0, th, offload=tier,
+                                           **kw)["peak_bytes"]
+        assert peak < device - 8 * slot, (tier, peak, device)
+
+
+def test_planner_spill_fallback_runs_on_the_card(cuda):
+    """A budget under every in-device candidate plans pnode + spill,
+    measured on the allocator, and the auto gradient is pnode's bitwise."""
+    from repro_torch.mem import model as tmodel
+    from repro_torch.mem.planner import plan_odeint
+    f, u0, th = _planner_case(cuda)
+    kw = dict(dt=0.05, n_steps=8, method="rk4")
+    plan = plan_odeint(f, u0, th, mem_budget=1, fused_stages=True, **kw)
+    assert (plan.policy, plan.offload) == ("pnode", "spill")
+    assert plan.measured_bytes == tmodel.measure_reverse_cost(
+        f, u0, th, policy="pnode", offload="spill", fused_stages=True,
+        **kw)["peak_bytes"]
+    auto = tmodel.reverse_pass(f, u0, th, policy="auto", mem_budget=1,
+                               fused_stages=True, **kw)
+    pnode = tmodel.reverse_pass(f, u0, th, policy="pnode",
+                                fused_stages=True, **kw)
+    assert _same_bits(auto(), pnode())
+
+
+@pytest.mark.parametrize("capture", [False, True],
+                         ids=["eager", "captured"])
+def test_adaptive_ring_spill_bitwise_the_device_ring(cuda, capture):
+    """The ring of segment + CHECK_EVERY slots, shipped at the host's live
+    reads (outside the captured attempts), gives the device ring's
+    gradient bitwise, eager and captured."""
+    rs = np.random.RandomState(3)
+    u0 = torch.tensor(rs.randn(512, 6), device=cuda)
+    th = {"W": torch.tensor(0.6 * rs.randn(6, 6), device=cuda),
+          "b": torch.tensor(0.1 * rs.randn(6), device=cuda)}
+
+    def f(u, p, t):
+        return (torch.tanh(u @ p["W"] + p["b"]) - 0.2 * u
+                + 4.0 * torch.exp(-((t - 1.0) / 0.05) ** 2) * torch.tanh(u))
+
+    def run(**kw):
+        solver = tad.AdaptiveSolver(f, t0=0.0, t1=2.0, rtol=1e-7,
+                                    atol=1e-7, max_steps=64,
+                                    fused_stages=True, capture=capture,
+                                    **kw)
+        a = u0.detach().requires_grad_(True)
+        b = {n: v.detach().requires_grad_(True) for n, v in th.items()}
+        uf, info = solver(a, b)
+        g = torch.autograd.grad((uf ** 2).sum(), [a, b["W"], b["b"]])
+        return [uf.detach(), *g], info, solver
+
+    dev, info, _ = run()
+    for kw in (dict(offload="spill"), dict(offload="disk"),
+               dict(offload="spill", offload_segment=3)):
+        got, info_s, solver = run(**kw)
+        assert info_s == info and _same_bits(got, dev), kw
+        assert solver.ring_slots == solver.segment + tad.CHECK_EVERY
+        assert info.n_accepted > solver.segment  # several segments
+
+
+def test_implicit_eager_route_tiers_bitwise_on_the_card(cuda, monkeypatch):
+    """The eager implicit route: pnode on spill and disk (and resilient,
+    with a byte flipped at rest recomputed), revolve on host and spill,
+    each the device tier's gradient bitwise."""
+    from repro_torch.mem import offload
+
+    def f(u, th, t):
+        return torch.tanh(th["W"] @ u + th["b"]) - 0.5 * u
+
+    rs = np.random.RandomState(1)
+    u0 = torch.tensor(rs.randn(5), device=cuda)
+    th = {"W": torch.tensor(0.5 * rs.randn(5, 5), device=cuda),
+          "b": torch.tensor(0.1 * rs.randn(5), device=cuda)}
+    stores = _kept_stores(monkeypatch)
+
+    def grads(corrupt=False, **kw):
+        a = u0.detach().requires_grad_(True)
+        b = {n: v.detach().requires_grad_(True) for n, v in th.items()}
+        uf = timp.odeint_implicit(f, a, b, dt=0.2, n_steps=7, method="cn",
+                                  **kw)
+        if corrupt:
+            stores[-1].sync()
+            stores[-1]._host[4][0][0] ^= 0xFF
+        return [uf.detach(), *torch.autograd.grad((uf ** 2).sum(),
+                                                  [a, b["W"], b["b"]])]
+
+    ref = grads()
+    for kw in (dict(offload="spill"), dict(offload="disk"),
+               dict(offload="spill", resilient=True)):
+        assert _same_bits(grads(**kw), ref), kw
+    offload.reset_spill_stats()
+    assert _same_bits(grads(corrupt=True, offload="spill", resilient=True),
+                      ref)
+    assert stores[-1].stats["integrity_fail"] >= 1
+    rev = grads(adjoint="revolve", ncheck=2)
+    for tier in ("host", "spill"):
+        assert _same_bits(grads(adjoint="revolve", ncheck=2, offload=tier),
+                          rev), tier
+        assert stores[-1].effective_tier == tier
 
 
 def test_step_graph_holds_the_collector_off_during_a_capture(cuda):

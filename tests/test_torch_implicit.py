@@ -273,19 +273,48 @@ def test_cost_model_matches_jax():
     assert timp.is_implicit_method("cn") and not timp.is_implicit_method("rk4")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(offload="spill"), "item 10"), (dict(offload="host"), "item 10"),
-    (dict(offload="disk"), "item 10"), (dict(offload_segment=2), "item 10"),
-    (dict(snaps_in_ram=1), "item 10"), (dict(offload_dir="/x"), "item 10"),
-    (dict(resilient=True), "item 10"),
-    (dict(adjoint="auto", mem_budget=1), "item 10"),
-    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "item 10"),
-    (dict(obs=object()), "item 11"), (dict(fault_plan=object()), "item 11")])
-def test_unported_options_raise_naming_their_roadmap_item(kw, item):
-    """A budget under every in-device candidate plans the spill tier."""
+#: (keywords, what happens): the tiers on the eager route and a plan
+#: that spills run; a knob without its tier (or host with pnode) is the
+#: reference's ValueError; obs= and fault_plan= are still refused (item
+#: 11).  The ids are the cases' ids from when every one was refused.
+OPTION_CASES = [
+    (dict(offload="spill"), "runs"),
+    (dict(offload="host"), "offload='host' applies"),
+    (dict(offload="disk"), "runs"),
+    (dict(offload_segment=2), "offload_segment only applies"),
+    (dict(snaps_in_ram=1), "snaps_in_ram is the spill tier"),
+    (dict(offload_dir="/x"), "offload_dir pins"),
+    (dict(resilient=True), "resilient=True"),
+    (dict(adjoint="auto", mem_budget=1), "runs"),
+    (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "runs"),
+    (dict(obs=object()), "item 11"), (dict(fault_plan=object()), "item 11")]
+
+
+@pytest.mark.parametrize(
+    "kw,outcome", OPTION_CASES,
+    ids=[f"kw{i}-item {11 if i >= 9 else 10}" for i in range(11)])
+def test_unported_options_raise_naming_their_roadmap_item(kw, outcome):
+    """A budget under every in-device candidate plans the spill tier, which
+    runs: every running case gives pnode's device gradient bitwise."""
     u0, th = _problem_np()
-    with pytest.raises(NotImplementedError, match=item):
-        timp.odeint_implicit(_tf, _t(u0), _t(th), dt=DT, n_steps=N, **kw)
+    if outcome == "item 11":
+        with pytest.raises(NotImplementedError, match=outcome):
+            timp.odeint_implicit(_tf, _t(u0), _t(th), dt=DT, n_steps=N,
+                                 **kw)
+        return
+    if outcome != "runs":
+        for odeint_implicit, f, t in (
+                (timp.odeint_implicit, _tf, _t),
+                (jimp.odeint_implicit, _jf,
+                 lambda x: jax.tree_util.tree_map(jnp.asarray, x))):
+            with pytest.raises(ValueError, match=outcome):
+                odeint_implicit(f, t(u0), t(th), dt=DT, n_steps=N, **kw)
+        return
+    a = _port_grads(u0, th, "cn", **kw)
+    b = _port_grads(u0, th, "cn")
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
 
 
 def test_mem_budget_without_auto_raises_the_references_value_error():

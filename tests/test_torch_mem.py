@@ -427,8 +427,15 @@ def test_auto_fused_measures_the_fused_gradient_and_drops_fused_for_naive():
 
 
 def test_measure_refuses_offload_and_a_capture(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _measure("pnode", offload="spill")
+    """An offloaded gradient is measured on its tier: the host copies do
+    not count, so spill's peak is under the device tier's (the staging
+    segment and the prefetched one replace the N_t checkpoints); a miss
+    while a CUDA graph captures is refused."""
+    device = _measure("pnode")["peak_bytes"]
+    for tier in ("spill", "disk"):
+        m = _measure("pnode", offload=tier)
+        assert m["source"] == "live_tensors"
+        assert 0 < m["peak_bytes"] < device, (tier, m, device)
 
     def fresh_f(u, th, t):  # a new function: no cached measurement
         return _tf(u, th, t)
@@ -450,10 +457,17 @@ def test_auto_without_budget_is_pnode_and_tiny_budget_plans_spill():
                                 verify="model")
     assert (plan.policy, plan.offload, plan.fits) == ("pnode", "spill",
                                                       False)
+    measured = tplanner.plan_odeint(_tf, _t(u0n), _t(thn), dt=DT,
+                                    n_steps=N_STEPS, mem_budget=1,
+                                    verify="measure")
+    assert (measured.policy, measured.offload) == ("pnode", "spill")
+    assert measured.measured_bytes == _measure(
+        "pnode", offload="spill")["peak_bytes"]
+    pnode = _auto_grads("rk4", None, adjoint="pnode")
     for verify in ("model", "measure"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _auto_grads("rk4", 1, adjoint="auto", mem_budget=1,
-                        mem_verify=verify)
+        for a, b in zip(_auto_grads("rk4", 1, adjoint="auto", mem_budget=1,
+                                    mem_verify=verify), pnode):
+            np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -106,13 +106,23 @@ def _quick_truth(n_pts, device="cpu", capture=False):
 
 
 def test_stiff_robertson_cli_refuses_mem_budget_and_needs_a_card(
-        monkeypatch):
-    """A 2000-byte budget plans the spill tier (the reference example's
-    documented case), which raises naming its ROADMAP item."""
+        monkeypatch, capsys):
+    """A 2000-byte budget plans pnode on the spill tier (the reference
+    example's documented case): the CN solvers run it on the eager route
+    (item 10a, logged) with the in-device plan's epoch 0, bitwise (the
+    reference example's offload contract)."""
     from repro_torch.examples import stiff_robertson as trob
     monkeypatch.setattr(trob, "robertson_truth", _quick_truth)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trob.main(["--mem-budget", "2000", "--device", "cpu"])
+    out = trob.main(["--epochs", "1", "--mem-budget", "2000", "--device",
+                     "cpu"])
+    assert (out["plan"].policy, out["plan"].offload) == ("pnode", "spill")
+    assert "item 10a" in capsys.readouterr().out
+    assert all(s.offload == "spill" and not s.masked
+               for s in out["losses"].cn_solvers)
+    ref = trob.main(["--epochs", "1", "--mem-budget", "400000", "--device",
+                     "cpu"])
+    assert out["cn"]["losses"] == ref["cn"]["losses"]
+    assert out["cn"]["gnorms"] == ref["cn"]["gnorms"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trob.main(["--epochs", "1"])
