@@ -153,6 +153,26 @@ Phases (any failure exits non-zero, before the last line is printed):
    12's device ring; the Robertson example's ``--mem-budget 2000`` (pnode
    + spill, the CN solvers eager: ROADMAP Queue 1 item 10a), its CN epoch
    0 BITWISE phase 15's in-device plan's;
+17. the flight recorder, fault injection and checkpoints
+   (``repro_torch.obs``, ``.ft``, ``.ckpt``): phase 16's pnode + spill
+   gradient with a ``FlightRecorder``, BITWISE the unobserved one, its
+   ``spill_traffic()`` the store's counters, timed without and with it;
+   phase 12's one-point adaptive CNF request with ``obs=``, eager
+   (counted) and captured, BITWISE each other and the unobserved request,
+   the captured attempt log the eager one, ``accepted_rejected()`` the
+   solve's; the request with attempts 2-3 poisoned (captured): finite,
+   2+ rejections, within 1e-5 of the clean one; a ``FevalCounter`` on the
+   captured forward pass (the dead attempts' f evaluations); Robertson
+   fp64 CN pnode + spill: ``spill.write`` corrupt and drop, a transient
+   ``spill.read`` flake (``resilient``), Newton diverge and NaN
+   (``rescue``), each BITWISE the fault-free gradient, a persistent flake
+   raising; the classifier checkpointed after step 2 by the async
+   ``CheckpointManager`` and restored, steps 3-5 BITWISE the
+   uninterrupted run, a ``ckpt.write`` preemption recovered; and (run
+   after phase 7, while TinyLlama's weights are on the card, as "17e")
+   TinyLlama-1.1B serving batch 8 with lane 0 poisoned at decode step 0:
+   lane 0 errors, lanes 1-7 BITWISE the clean run, injected malformed and
+   oversize requests refused and counted;
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
@@ -162,9 +182,9 @@ Phases (any failure exits non-zero, before the last line is printed):
 The kernels' launch counters are set to 0 just before each main path
 (phases 3-4, each of phase 12's two eager fused runs, phase 15's
 auto-planned classifier gradients and each of phase 16's counted
-gradients for ``fused_lincomb``, phase 6 for the
-flash
-kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
+gradients, phase 17's counted gradients, adaptive request and
+checkpointed training for ``fused_lincomb``, phase 6 and phase 17e's two
+serves for the flash kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
 come from the eager runs; the traced replays count the kernels the
@@ -2728,6 +2748,525 @@ def offload_phase(card, dev, params, images, labels, cnf_theta, x,
                 robertson_plan=line)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the flight recorder, fault injection and checkpoints
+# ---------------------------------------------------------------------------
+
+OBS_STREAM = 8             # captured observed one-point requests timed
+ADAPTIVE_FAULT = ("adaptive", 2, "nan", 2)   # attempts 2 and 3 poisoned
+FAULT_RTOL = 1e-5          # the faulted adaptive request vs the clean one
+#: the Robertson fault cases: CN, pnode on the spill tier, fp64, rates
+#: K_BASE as the differentiated parameter
+ROB_FAULT = dict(n_steps=16, dt=0.025, segment=4, newton_iters=10,
+                 newton_tol=1e-10, gmres_iters=10)
+#: (label, fault specs, solve keywords, the spill counter that must move)
+IMPLICIT_FAULTS = [
+    ("spill.write corrupt at 1", [("spill.write", 1, "corrupt")],
+     dict(resilient=True), "integrity_fail"),
+    ("spill.write drop at 2", [("spill.write", 2, "drop")],
+     dict(resilient=True), "integrity_fail"),
+    ("spill.read flake at 0", [("spill.read", 0, "flake")],
+     dict(resilient=True), "retry_cb"),
+    ("newton diverge at 5", [("newton", 5, "diverge")], dict(rescue=True),
+     "rescued"),
+    ("newton nan at 3", [("newton", 3, "nan")], dict(rescue=True),
+     "rescued"),
+]
+CKPT_SAVE_AT = 2           # the classifier's checkpoint, after this step
+SERVE_FAULT_GEN = 8        # greedy tokens of the faulted TinyLlama serve
+
+
+def robertson_rates(u, k, t):
+    """Robertson's kinetics with the rates ``k`` as the parameter."""
+    import torch
+    u1, u2, u3 = u
+    return torch.stack([-k[0] * u1 + k[2] * u2 * u3,
+                        k[0] * u1 - k[1] * u2 ** 2 - k[2] * u2 * u3,
+                        k[1] * u2 ** 2])
+
+
+def recorder_phase(card, dev, params, images, labels, cnf_theta, x,
+                   adaptive_res):
+    """Phase 17a-c: the flight recorder (``repro_torch.obs``) and fault
+    injection (``repro_torch.ft``) on the card.  (a) phase 16's pnode +
+    spill gradient at the classifier's width with a ``FlightRecorder``:
+    BITWISE the unobserved gradient, its ``spill_traffic()`` equal to the
+    store's counters, timed without and with (A B B A), counted.  (b)
+    phase 12's one-point adaptive CNF request with ``obs=``, eager
+    (counted) and captured (the attempt log written inside the captured
+    attempt): BITWISE each other and the unobserved request, the captured
+    log the eager one, ``accepted_rejected()`` the solve's counts, timed
+    against the unobserved captured request on the same points (A B B A);
+    the request with attempts 2-3 poisoned, captured: finite, rejected >= 2,
+    within ``FAULT_RTOL`` of the clean one; a ``FevalCounter`` counting
+    the f evaluations the captured attempts execute, dead ones included.
+    (c) Robertson, fp64, CN, pnode + spill, segment 4: every
+    ``IMPLICIT_FAULTS`` case BITWISE the fault-free gradient, each with
+    the counter that shows its fault was met (the store's ``integrity_fail``
+    or ``retry_cb``, or the recorder's one rescued Newton step); a
+    persistent read flake without ``resilient`` raises."""
+    import torch
+    from repro_torch.core.adaptive import (DOPRI5,
+                                           expected_adaptive_lincomb_calls)
+    from repro_torch.core.adjoint import expected_lincomb_calls
+    from repro_torch.core.cnf import AdaptiveCNF
+    from repro_torch.core.implicit import odeint_implicit
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.mem import model, offload
+    from repro_torch.models.ode_nets import (classifier_apply, cnf_vf,
+                                             conv_vf)
+    from repro_torch.obs import FevalCounter, FlightRecorder
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    gc_collect()
+    out = {}
+
+    # -- (a) the recorder on the spill gradient at the classifier's width ----
+    box = []
+    with torch.no_grad():
+        classifier_apply(params, images,
+                         odeint_fn=lambda vf, u, th: box.append(u) or u)
+    u0, theta = box[0], params["ode"]
+    seg = model.default_segment(OFFLOAD_NT)
+    slot = 5 * model.tree_bytes(u0)
+    want = expected_lincomb_calls("rk4", OFFLOAD_NT, 1, "pnode")
+    grads, ms, events = {}, {"plain": [], "recorder": []}, 0
+    out["launches"], out["expected"] = 0, 0
+    # an untimed gradient first: the first one of a process pays the
+    # pinned buffers and the copy stream (2,381 ms against 1,261)
+    ode_gradient(conv_vf, u0, theta, adjoint="pnode", offload="spill")()
+    for label in ("plain", "recorder", "recorder", "plain"):
+        rec = FlightRecorder() if label == "recorder" else None
+        fn = ode_gradient(conv_vf, u0, theta, adjoint="pnode",
+                          offload="spill", obs=rec)
+        offload.reset_spill_stats()
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = fn()
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t0) * 1e3)
+        n, plain = ops.launches, ops.plain_calls
+        check(plain == 0 and n == want,
+              f"recorder, {label} spill gradient: {n} fused_lincomb "
+              f"launches (expected {want}), {plain} plain calls")
+        out["launches"] += n
+        out["expected"] += want
+        if rec is not None:
+            stats = offload.spill_stats()
+            (traffic,) = rec.spill_traffic().values()
+            keys = ("write_cb", "read_cb", "write_slots", "read_slots",
+                    "write_bytes", "read_bytes", "dispatch_cb")
+            check(all(traffic[k] == stats[k] for k in keys)
+                  and (traffic["write_cb"], traffic["read_cb"])
+                  == (OFFLOAD_NT // seg,) * 2
+                  and traffic["write_bytes"] == traffic["read_bytes"]
+                  == OFFLOAD_NT * slot,
+                  f"spill_traffic {traffic} != the store's {stats}")
+            events = len(rec)
+        if label in grads:
+            check(all(torch.equal(bits(a), bits(b))
+                      for a, b in zip(g, grads[label])),
+                  f"recorder: two {label} spill gradients differ")
+        else:
+            grads[label] = g
+        del g
+    check(all(torch.equal(bits(a), bits(b))
+              for a, b in zip(grads["plain"], grads["recorder"])),
+          "the spill gradient with a recorder differs from the one without")
+    med = {k: (v[0] + v[1]) / 2 for k, v in ms.items()}
+    print(f"phase 17 recorder, pnode + spill gradient at the classifier's "
+          f"width (N_t {OFFLOAD_NT}, segment {seg}, fused): BITWISE the "
+          f"unobserved gradient; spill_traffic() equals the store's "
+          f"counters: {OFFLOAD_NT // seg} + {OFFLOAD_NT // seg} transfers "
+          f"of {OFFLOAD_NT * slot} B each way; {events} events; "
+          f"{want} fused_lincomb launches a gradient; ms without "
+          f"{ms['plain']} / with {ms['recorder']} (A B B A), mean "
+          f"{med['plain']:.1f} vs {med['recorder']:.1f} "
+          f"({med['recorder'] / med['plain']:.4f}x) {card}", flush=True)
+    out["spill_gradient"] = dict(ms=ms, mean_ms=med, events=events,
+                                 transfers=OFFLOAD_NT // seg,
+                                 bytes_each_way=OFFLOAD_NT * slot,
+                                 launches=want)
+    del grads
+    gc_collect()
+
+    # -- (b) the adaptive CNF request with a recorder, eager and captured ----
+    dim = CNF["dim"]
+    points = x[:OBS_STREAM]
+    ref = adaptive_request(AdaptiveCNF(cnf_vf, dim, fused_stages=True,
+                                       **ADAPTIVE), cnf_theta, points[0])
+    rec_e = FlightRecorder()
+    eager_cnf = AdaptiveCNF(cnf_vf, dim, fused_stages=True, obs=rec_e,
+                            **ADAPTIVE)
+    ops.reset_counts()
+    eager, eager_ms = timed_request(eager_cnf, cnf_theta, points[0])
+    n, plain, info = ops.launches, ops.plain_calls, eager[2]
+    want = expected_adaptive_lincomb_calls(
+        info.n_accepted, info.n_rejected, 2, backward=False) \
+        + expected_adaptive_lincomb_calls(info.n_accepted, info.n_rejected, 2)
+    check(plain == 0 and n == want,
+          f"observed adaptive request: {n} launches (expected {want}), "
+          f"{plain} plain calls")
+    check(same_request(eager, ref),
+          "the eager adaptive request with a recorder differs from without")
+    rec_c = FlightRecorder()
+    cap = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                      obs=rec_c, **ADAPTIVE)
+    check(same_request(adaptive_request(cap, cnf_theta, points[0]), eager),
+          "observed adaptive request: captured differs from eager")
+    cap0 = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                       **ADAPTIVE)
+    check(same_request(adaptive_request(cap0, cnf_theta, points[0]), ref),
+          "unobserved adaptive request: captured differs from eager")
+    # the same points without and with the recorder, A B B A on each
+    stream = {"plain": [], "recorder": []}
+    for p in points:
+        for label in ("plain", "recorder", "recorder", "plain"):
+            stream[label].append(timed_request(
+                cap if label == "recorder" else cap0, cnf_theta, p)[1])
+    check(same_request(adaptive_request(cap, cnf_theta, points[0]), eager),
+          "observed adaptive request: captured replay differs from eager")
+    stats = cap.solver.graph_stats()
+    check(set(stats) == {"attempt_obs", "attempt_record_obs", "adjoint"},
+          f"observed adaptive graphs {sorted(stats)}")
+    rec_c.clear()
+    with torch.no_grad():
+        _, info_d = cap.log_prob(points[0], cnf_theta)
+    n_att = info_d.n_accepted + info_d.n_rejected
+    check(info_d == info and rec_c.accepted_rejected()
+          == (info.n_accepted, info.n_rejected),
+          f"accepted_rejected() {rec_c.accepted_rejected()} != {info}")
+    e_rows = sorted(rec_e.events("adaptive.step"), key=lambda e: e.seq)
+    c_rows = rec_c.adaptive_steps()
+    check([e.data for e in e_rows[:n_att]] == c_rows,
+          "the captured attempt log differs from the eager one")
+    med = {k: float(sorted(v)[len(v) // 2]) for k, v in stream.items()}
+    obs_ms = med["recorder"]
+    print(f"phase 17 recorder, adaptive CNF request (one point, phase 12's "
+          f"settings): eager (counted: {n} launches) and captured BITWISE "
+          f"each other and the unobserved request; captured log == eager "
+          f"log ({n_att} rows); accepted_rejected() {rec_c.accepted_rejected()}"
+          f" = AdaptiveInfo; eager {eager_ms:.1f} ms; captured on the same "
+          f"{OBS_STREAM} points, A B B A each, median without "
+          f"{med['plain']:.3f} / with the recorder {obs_ms:.3f} ms "
+          f"({obs_ms / med['plain']:.4f}x); across phases, phase 12's "
+          f"unobserved {adaptive_res['ms']:.2f} ms; graphs "
+          + ", ".join(f"{k}: pool {v[2]} B" for k, v in stats.items())
+          + f" {card}", flush=True)
+    out["launches"] += n
+    out["expected"] += want
+    out["adaptive"] = dict(n_accepted=info.n_accepted,
+                           n_rejected=info.n_rejected, eager_ms=eager_ms,
+                           captured_ms=obs_ms,
+                           captured_plain_ms=med["plain"], stream_ms=stream,
+                           phase12_ms=adaptive_res["ms"], launches=n,
+                           events_per_solve=n_att)
+
+    plan = FaultPlan([FaultSpec(*ADAPTIVE_FAULT)])
+    rec_f = FlightRecorder()
+    fcnf = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                       obs=rec_f, fault_plan=plan, **ADAPTIVE)
+    d_f, s_f, info_f = adaptive_request(fcnf, cnf_theta, points[0])
+    d_c, s_c = eager[0], eager[1]
+    scale = float(s_c.abs().max())
+    # the density and the score solves took the same attempts
+    poisoned = sorted({d["attempt"] for d in rec_f.adaptive_steps()
+                       if not math.isfinite(d["err_norm"])})
+    check(bool(torch.isfinite(d_f) and torch.isfinite(s_f).all())
+          and info_f.n_rejected >= 2
+          and torch.allclose(d_f, d_c, rtol=FAULT_RTOL, atol=0)
+          and torch.allclose(s_f, s_c, rtol=FAULT_RTOL,
+                             atol=FAULT_RTOL * scale)
+          and poisoned[:2] == [2, 3],
+          f"faulted adaptive request: {info_f}, density {d_f.item()} vs "
+          f"{d_c.item()}, score max|diff| {max_abs(s_f, s_c)}, poisoned "
+          f"attempts {poisoned}")
+    print(f"phase 17 fault, adaptive CNF request captured with attempts 2-3 "
+          f"poisoned (FaultSpec{ADAPTIVE_FAULT}): finite, {info_f} against "
+          f"the clean {info}; density rel diff "
+          f"{abs(d_f.item() - d_c.item()) / abs(d_c.item()):.3e}, score "
+          f"max|diff| {max_abs(s_f, s_c):.3e} (tolerance rtol "
+          f"{FAULT_RTOL}); NaN error norms at attempts {poisoned} {card}",
+          flush=True)
+    out["adaptive_fault"] = dict(info=list(info_f), poisoned=poisoned,
+                                 density_rel=abs(d_f.item() - d_c.item())
+                                 / abs(d_c.item()),
+                                 score_max_abs=max_abs(s_f, s_c))
+
+    fc = AdaptiveCNF(cnf_vf, dim, fused_stages=True, capture=True,
+                     **ADAPTIVE)
+    counter = FevalCounter(fc.solver.f)
+    fc.solver.f = counter
+    adaptive_request(fc, cnf_theta, points[0])   # captures the graphs
+    counter.reset()
+    with torch.no_grad():
+        _, info_n = fc.log_prob(points[0], cnf_theta)
+    executed, s = counter.count, DOPRI5.num_stages
+    check(executed == fc.solver.replays * s
+          and executed >= info_n.nfe_forward,
+          f"FevalCounter {executed} != {fc.solver.replays} replays x {s}")
+    print(f"phase 17 FevalCounter on the captured forward pass: {executed} f "
+          f"evaluations executed ({fc.solver.replays} attempt replays x {s} "
+          f"stages) against AdaptiveInfo.nfe_forward {info_n.nfe_forward}: "
+          f"{executed - info_n.nfe_forward} in masked, dead attempts {card}",
+          flush=True)
+    out["feval"] = dict(executed=executed, replays=fc.solver.replays,
+                        nfe_forward=info_n.nfe_forward)
+    del eager_cnf, cap, cap0, fcnf, fc
+    gc_collect()
+
+    # -- (c) the implicit route's spill and Newton faults ---------------------
+    torch.use_deterministic_algorithms(False)
+    weights = torch.tensor(LOSS_W, dtype=torch.float64, device=dev)
+
+    def rob_grad(plan=None, **kw):
+        u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        k = torch.tensor(K_BASE, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        uf = odeint_implicit(
+            robertson_rates, u0, k, dt=ROB_FAULT["dt"],
+            n_steps=ROB_FAULT["n_steps"], method="cn", adjoint="pnode",
+            offload="spill", offload_segment=ROB_FAULT["segment"],
+            newton_iters=ROB_FAULT["newton_iters"],
+            newton_tol=ROB_FAULT["newton_tol"],
+            gmres_iters=ROB_FAULT["gmres_iters"], fault_plan=plan, **kw)
+        return torch.autograd.grad(torch.sum(uf * weights), [u0, k])
+
+    g0 = rob_grad()
+    check(all(bool(torch.isfinite(g).all()) for g in g0),
+          f"Robertson fault-free gradient not finite: {g0}")
+    rows = {}
+    for label, specs, kw, counter_key in IMPLICIT_FAULTS:
+        plan, rec = FaultPlan([FaultSpec(*s) for s in specs]), FlightRecorder()
+        offload.reset_spill_stats()
+        t0 = time.perf_counter()
+        g = rob_grad(plan, obs=rec, **kw)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        if counter_key == "rescued":
+            # the forward sweep's one event: the solve's rescued steps
+            moved = [e.data["rescued"] for e in rec.events("implicit.rescue")]
+            met = moved == [1]
+        else:
+            moved = offload.spill_stats()[counter_key]
+            met = moved >= 1
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(g, g0))
+              and met,
+              f"implicit fault {label}: gradient BITWISE the fault-free "
+              f"one: {all(torch.equal(a, b) for a, b in zip(g, g0))}; "
+              f"{counter_key} {moved}")
+        rows[label] = dict(ms=t_ms, counter=counter_key, moved=moved,
+                           fired=plan.fired_count())
+        print(f"phase 17 fault, Robertson CN pnode + spill: {label} "
+              f"({', '.join(f'{k}={v}' for k, v in kw.items())}): gradient "
+              f"BITWISE the fault-free one, {counter_key} {moved}, "
+              f"{t_ms:.1f} ms {card}", flush=True)
+    try:
+        rob_grad(FaultPlan([FaultSpec("spill.read", 0, "flake",
+                                      count=10_000)]))
+    except RuntimeError as e:
+        check("retries" in str(e), f"persistent flake raised {e!r}")
+        print(f"phase 17 fault: a persistent spill.read flake without "
+              f"resilient raises: {e}", flush=True)
+    else:
+        fail("a persistent spill.read flake without resilient did not raise")
+    out["implicit_faults"] = rows
+    gc_collect()
+    return out
+
+
+def checkpoint_phase(card, dev, params, batches):
+    """Phase 17d: checkpoints (``repro_torch.ckpt``) of the classifier on
+    the card (phase 4's seeded weights, AdamW, its 5 batches): saved after
+    step ``CKPT_SAVE_AT`` through the async ``CheckpointManager`` (pinned
+    snapshot on a copy stream, the commit on its own thread), restored into
+    fresh tensors, steps 3-5 BITWISE the uninterrupted run's losses and
+    parameters (counted); a ``ckpt.write`` preemption leaves a
+    ``.tmp_step_*`` that restore ignores and the next manager removes."""
+    import shutil
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.ckpt import (CheckpointManager, CheckpointWriteError,
+                                  available_steps, load_checkpoint)
+    from repro_torch.core.adjoint import expected_lincomb_calls
+    from repro_torch.ft import FaultPlan, FaultSpec, SimulatedPreemption
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamW
+
+    torch.use_deterministic_algorithms(True)
+    opt = AdamW(lr=2e-3, warmup_steps=2, total_steps=CLS["steps"])
+
+    def train_step(p, s, xb, lb):
+        loss, grads = classifier_grads(p, xb, lb, fused=True)
+        with torch.no_grad():
+            p, s, _ = opt.update(pytree.tree_unflatten(
+                grads, pytree.tree_structure(p)), s, p)
+        return p, s, loss
+
+    ck = ROOT / "build" / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(ck)
+    p, s, losses = params, opt.init(params), []
+    ops.reset_counts()
+    for k, (xb, lb) in enumerate(batches):
+        p, s, loss = train_step(p, s, xb, lb)
+        losses.append(loss)
+        if k + 1 == CKPT_SAVE_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(CKPT_SAVE_AT, {"params": p, "opt": s})
+            save_ms = (time.perf_counter() - t0) * 1e3
+    n, plain = ops.launches, ops.plain_calls
+    want = len(batches) * expected_lincomb_calls(CLS["method"],
+                                                 CLS["n_steps"], 1,
+                                                 CLS["adjoint"])
+    check(plain == 0 and n == want,
+          f"checkpointed training: {n} launches (expected {want}), {plain} "
+          "plain calls")
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    fresh = pytree.tree_map(torch.zeros_like, params)
+    restored, at = mgr.restore_latest({"params": fresh,
+                                       "opt": opt.init(fresh)})
+    p2, s2 = restored["params"], restored["opt"]
+    check(at == CKPT_SAVE_AT and s2.step == CKPT_SAVE_AT,
+          f"restored step {at}, AdamW step {s2.step}")
+    for k in range(CKPT_SAVE_AT, len(batches)):
+        p2, s2, loss = train_step(p2, s2, *batches[k])
+        check(torch.equal(bits(loss), bits(losses[k])),
+              f"restored run: step {k + 1} loss {loss.item()} != "
+              f"{losses[k].item()}")
+    check(all(torch.equal(bits(a), bits(b)) for a, b in
+              zip(pytree.tree_leaves(p2), pytree.tree_leaves(p))),
+          "restored run: parameters after the last step differ")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in pytree.tree_leaves((p, s)) if torch.is_tensor(t))
+
+    pre = CheckpointManager(ck, fault_plan=FaultPlan(
+        [FaultSpec("ckpt.write", 0, "preempt")]))
+    pre.save(len(batches), {"params": p2, "opt": s2})
+    try:
+        pre.wait()
+    except CheckpointWriteError as e:
+        check(isinstance(e.__cause__, SimulatedPreemption),
+              f"preempted commit raised {e!r}")
+    else:
+        fail("a ckpt.write preemption did not surface at wait()")
+    stale = sorted(q.name for q in ck.glob(".tmp_step_*"))
+    template = {"params": fresh, "opt": opt.init(fresh)}
+    check(len(stale) == 1 and available_steps(ck) == [CKPT_SAVE_AT]
+          and load_checkpoint(ck, template)[1] == CKPT_SAVE_AT,
+          f"after the preemption: stale {stale}, steps "
+          f"{available_steps(ck)}")
+    CheckpointManager(ck)
+    check(not list(ck.glob(".tmp_step_*")),
+          "the next manager did not remove the stale staging directory")
+    print(f"phase 17 checkpoints, classifier on the card (AdamW, "
+          f"{len(batches)} steps, {nbytes} B of parameters and moments): "
+          f"saved after step {CKPT_SAVE_AT} by the async manager, "
+          f"save() {save_ms:.3f} ms on the caller's thread, commit joined "
+          f"in {wait_ms:.1f} ms at wait(); restored into fresh tensors, "
+          f"steps {CKPT_SAVE_AT + 1}-{len(batches)} BITWISE the "
+          f"uninterrupted run's losses and parameters ({n} launches "
+          f"counted, expected {want}); a ckpt.write preemption left "
+          f"{stale[0]}, ignored by restore and removed by the next manager "
+          f"{card}", flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    return dict(save_ms=save_ms, wait_ms=wait_ms, bytes=nbytes, launches=n,
+                expected=want)
+
+
+def serve_fault_phase(cfg, params, card, dev):
+    """Phase 17e: serving faults at TinyLlama-1.1B's full width (phase 6's
+    weights, batch 8, prompt 1920, ``SERVE_FAULT_GEN`` greedy tokens), the
+    prefill counted (flash launches = ``expected_flash_calls``): a clean
+    engine and one whose plan poisons lane 0's logits at decode step 0
+    (``serve.decode``): lane 0's ticket errors, the other 7 lanes' tokens
+    BITWISE the clean run's; then ``serve.request`` malformed and
+    oversize raise ``AdmissionError``; the registry counts them."""
+    import numpy as np
+    import torch
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import expected_flash_calls
+    from repro_torch.obs import FlightRecorder, MetricsRegistry
+    from repro_torch.serve import AdmissionError, LMEngine
+
+    torch.use_deterministic_algorithms(False)  # the decode graph's writes
+    lanes = LM["batch"]
+    prompts = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, size=(lanes, LM["prompt_len"]))
+    want = expected_flash_calls(cfg, 1)
+
+    counted = [0, 0]   # flash launches measured and expected, both runs
+
+    def run(plan):
+        reg, rec = MetricsRegistry(), FlightRecorder()
+        eng = LMEngine(cfg, lanes=lanes, prompt_len=LM["prompt_len"],
+                       max_gen=SERVE_FAULT_GEN,
+                       decode_slice=LM["decode_slice"], params=params,
+                       device=dev, fault_plan=plan, registry=reg, obs=rec)
+        ops.reset_counts()
+        tickets = [eng.submit(p) for p in prompts]
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n, plain = ops.flash_launches, ops.flash_plain_calls
+        check(plain == 0 and n == want,
+              f"serve faults: {n} flash launches (expected {want}), {plain} "
+              "plain calls")
+        counted[0] += n
+        counted[1] += want
+        return eng, tickets, reg, rec, ms
+
+    _, clean, _, _, clean_ms = run(None)
+    plan = FaultPlan([FaultSpec("serve.decode", 0, "nan"),
+                      FaultSpec("serve.request", lanes, "malformed"),
+                      FaultSpec("serve.request", lanes + 1, "oversize")])
+    eng, tickets, reg, rec, ms = run(plan)
+    try:
+        tickets[0].result(1.0)
+    except RuntimeError as e:
+        check("poisoned decode" in str(e), f"lane 0 raised {e!r}")
+    else:
+        fail("the poisoned lane 0 did not error")
+    same = [np.array_equal(t.result(1.0), c.result(1.0))
+            for t, c in zip(tickets[1:], clean[1:])]
+    check(all(same), f"unpoisoned lanes differ from the clean run: {same}")
+    rejected = []
+    for kind in ("malformed", "oversize"):
+        try:
+            eng.submit(prompts[0])
+        except AdmissionError as e:
+            check(kind in str(e), f"serve.request {kind} raised {e!r}")
+            rejected.append(kind)
+        else:
+            fail(f"an injected {kind} request was admitted")
+    counts = {k: reg.counter(k) for k in ("serve.submitted", "serve.rejected",
+                                          "serve.errors", "serve.completed")}
+    check(counts == {"serve.submitted": lanes, "serve.rejected": 2,
+                     "serve.errors": 1, "serve.completed": lanes - 1},
+          f"serve registry {counts}")
+    kinds = sorted({e.kind for e in rec.events()})
+    print(f"phase 17 serve faults, {cfg.name} full width (batch {lanes}, "
+          f"prompt {LM['prompt_len']}, {SERVE_FAULT_GEN} tokens; {want} "
+          f"flash launches a run, counted): serve.decode nan at step 0 "
+          f"errored lane 0 only, lanes 1-{lanes - 1} BITWISE the clean run; "
+          f"serve.request {' and '.join(rejected)} raised AdmissionError; "
+          f"registry {counts}; events {kinds}; clean {clean_ms:.1f} ms, "
+          f"faulted {ms:.1f} ms (a finite-flag read each step) {card}",
+          flush=True)
+    return dict(clean_ms=clean_ms, faulted_ms=ms, counts=counts,
+                launches=counted[0], expected=counted[1])
+
+
 def gc_collect():
     import gc
     import torch
@@ -2968,6 +3507,10 @@ def main():
     lm_agreement_phase(lm_cfg, lm_params, card, dev)
     lap("7 LM agreement")
 
+    # -- phase 17e: serving faults, while TinyLlama's weights are here -------
+    faults = {"serve": serve_fault_phase(lm_cfg, lm_params, card, dev)}
+    lap("17e serve faults")
+
     # -- phase 8: the RWKV6 kernel -------------------------------------------
     rw = rwkv6_phase(card, dev)
     lap("8 RWKV6 kernel")
@@ -3021,6 +3564,12 @@ def main():
                               x, planner.pop("robertson_cn"))
     lap("16 offload tiers")
 
+    # -- phase 17: the flight recorder, fault injection and checkpoints -------
+    faults.update(recorder_phase(card, dev, cls_params, *batches[0],
+                                 cnf_theta, x, adaptive_point))
+    faults["checkpoint"] = checkpoint_phase(card, dev, cls_params, batches)
+    lap("17 recorder, faults, checkpoints")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -3030,10 +3579,12 @@ def main():
         "replaces": "src/repro/kernels/ops.py:71",
         "launches": total_launches + adaptive_point["launches"]
         + adaptive["launches"] + planner["launches"]
-        + offloaded["launches"],
+        + offloaded["launches"] + faults["launches"]
+        + faults["checkpoint"]["launches"],
         "expected_launches": exp_cnf + exp_cls + adaptive_point["expected"]
         + adaptive["expected"] + planner["expected"]
-        + offloaded["expected"],
+        + offloaded["expected"] + faults["expected"]
+        + faults["checkpoint"]["expected"],
         "launches_cnf": cnf_launches,
         "launches_classifier": cls_launches,
         "launches_adaptive_request": adaptive_point["launches"],
@@ -3044,6 +3595,10 @@ def main():
         "expected_launches_planner": planner["expected"],
         "launches_offload": offloaded["launches"],
         "expected_launches_offload": offloaded["expected"],
+        "launches_recorder_faults": faults["launches"],
+        "expected_launches_recorder_faults": faults["expected"],
+        "launches_checkpoint": faults["checkpoint"]["launches"],
+        "expected_launches_checkpoint": faults["checkpoint"]["expected"],
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -3064,6 +3619,7 @@ def main():
         "stiff_ensemble": ensemble,
         "memory_planner": planner,
         "offload": offloaded,
+        "recorder_faults_checkpoints": faults,
         "card": smi,
     }, {
         "name": "flash_attention",
@@ -3071,8 +3627,11 @@ def main():
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "design": "wgmma",
-        "launches": lm_res["launches"],
-        "expected_launches": lm_res["expected"],
+        "launches": lm_res["launches"] + faults["serve"]["launches"],
+        "expected_launches": lm_res["expected"]
+        + faults["serve"]["expected"],
+        "launches_serve_faults": faults["serve"]["launches"],
+        "expected_launches_serve_faults": faults["serve"]["expected"],
         "max_abs_err": max(fl["worst"].values()),
         "max_abs_err_fp32": fl["worst"]["float32"],
         "max_abs_err_bf16": fl["worst"]["bfloat16"],

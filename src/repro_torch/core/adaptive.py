@@ -41,8 +41,26 @@ last, partial segment goes when the loop ends.  The reverse sweep
 prefetches one segment at a time into the ring, newest first, and replays
 the adjoint step over it.  Gradients are bitwise the device ring's.
 
-Not ported here (they raise ``NotImplementedError``): the flight recorder
-and fault injection (``obs``, ``fault_plan``; ROADMAP Queue 1 item 11).
+``obs=`` (a ``repro_torch.obs.FlightRecorder``) keeps an attempt log on
+the device: ``8 * max_steps`` rows (the attempt cap) of (t, h, error norm,
+accept), row ``n_accepted + n_rejected`` written inside the attempt,
+masked by ``live``, with no host read, so also inside the captured
+attempt (which then has a graph of its own).  At the end of the forward
+pass, where the host reads the counts anyway, the log's first ``n_accepted
++ n_rejected`` rows go to the recorder as ``adaptive.step`` events (read
+at ``obs.sync()``), and the solve records ``adaptive.solve`` and
+``adaptive.adjoint`` and binds the recorder to the ring's store.  With
+``obs=None`` the attempt and its graph are unchanged.
+
+``fault_plan=`` (a ``repro_torch.ft.FaultPlan``) poisons f's outputs with
+NaN at the attempts its ``adaptive``/``nan`` specs cover, keyed by the
+device attempt counter (``traced_gate``: a device bool, so it works in the
+captured attempt).  The controller survives without help: a NaN error
+norm rejects the attempt, the non-finite PI factor falls back to the
+maximum shrink, and the attempt cap bounds a run of rejections.  With
+``offload="spill"``/``"disk"`` the plan's downed tiers walk the
+degradation ladder (``mem.offload.effective_tier``, ``scanned``), and the
+plan arms the store's fault sites.
 """
 from __future__ import annotations
 
@@ -65,9 +83,13 @@ from repro_torch.core.integrators import (
 )
 from repro_torch.core.tableaus import DOPRI5
 from repro_torch.launch.graphs import StepGraph
+from repro_torch.obs.profile import scope
 
 #: captured attempts replayed between two reads of the ``live`` flag
 CHECK_EVERY = 4
+
+#: the attempt log's columns (``obs=``), the reference's event fields
+LOG_FIELDS = ("t", "h", "err_norm", "accept")
 
 __all__ = ["AdaptiveInfo", "AdaptiveSolver", "odeint_adaptive",
            "expected_adaptive_lincomb_calls"]
@@ -126,7 +148,7 @@ def _slot_writes():
 
 
 def _validate(method, offload, offload_segment, snaps_in_ram, offload_dir,
-              obs, fault_plan, max_steps):
+              max_steps):
     if method != "dopri5":
         raise ValueError("adaptive integration currently supports dopri5")
     if offload not in (None, "device", "spill", "disk"):
@@ -145,10 +167,6 @@ def _validate(method, offload, offload_segment, snaps_in_ram, offload_dir,
         raise ValueError(
             "offload_dir pins the disk tier's segment files "
             f"(offload='spill'/'disk'); got offload={offload!r}")
-    if obs is not None or fault_plan is not None:
-        raise NotImplementedError(
-            "obs= and fault_plan= (the flight recorder and fault injection) "
-            "are not ported yet: ROADMAP Queue 1 item 11")
     if int(max_steps) < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
 
@@ -166,7 +184,8 @@ class AdaptiveSolver:
     buffers hold the last forward pass: the reverse sweep of a call that
     was followed by another call raises.  On CPU tensors
     ``capture=True`` runs the same functions eagerly (``StepGraph``'s CPU
-    behaviour).  See ``odeint_adaptive`` for the other arguments."""
+    behaviour).  ``obs`` and ``fault_plan`` are the module docstring's.
+    See ``odeint_adaptive`` for the other arguments."""
 
     def __init__(self, f: VectorField, *, t0: float, t1: float,
                  rtol: float = 1e-6, atol: float = 1e-6,
@@ -175,9 +194,17 @@ class AdaptiveSolver:
                  capture: bool = False, offload: str | None = None,
                  offload_segment: int | None = None,
                  snaps_in_ram: int | None = None,
-                 offload_dir: str | None = None):
+                 offload_dir: str | None = None, obs=None,
+                 fault_plan=None):
         _validate(method, offload, offload_segment, snaps_in_ram,
-                  offload_dir, None, None, max_steps)
+                  offload_dir, max_steps)
+        self.obs, self.fault_plan = obs, fault_plan
+        if offload in ("spill", "disk") and fault_plan is not None:
+            # a downed tier walks spill -> disk -> device (the
+            # slot-addressed host tier cannot take the segmented ring)
+            from repro_torch.mem.offload import effective_tier
+            offload = effective_tier(offload, fault_plan, scanned=True,
+                                     obs=obs)
         #: the tier of the accepted steps: None keeps them in the device
         #: ring, "spill"/"disk" in a store a recording forward pass
         self.offload = offload if offload in ("spill", "disk") else None
@@ -205,6 +232,11 @@ class AdaptiveSolver:
         self._graphs: dict = {}
         #: replays of the captured attempt in the last forward pass
         self.replays = 0
+        #: the captured steps' keys: an observed or faulted attempt has a
+        #: graph of its own
+        self._tag = ("_obs" if obs is not None else "") + (
+            "_fault" if fault_plan is not None
+            and fault_plan.has("adaptive", "nan") else "")
 
     # -- buffers ---------------------------------------------------------------
     def _bind(self, u_leaves, th_leaves, u_spec, th_spec) -> None:
@@ -246,6 +278,9 @@ class AdaptiveSolver:
         #: accepted steps shipped to the store (spill/disk): ring slot of
         #: accepted step n is n - ring_base
         self._ring_base = torch.zeros((), **count)
+        #: the attempt log (``obs``): row a is attempt a's LOG_FIELDS
+        self._log = (torch.zeros((8 * self.max_steps, len(LOG_FIELDS)),
+                                 **scalar) if self.obs is not None else None)
 
     @property
     def ring_slots(self) -> int:
@@ -281,7 +316,9 @@ class AdaptiveSolver:
                 self._slot)
         if self.offload is not None:
             held += (self._ring_base,)
-        return held if key == "attempt" else held + (self._ring,)
+        if self._log is not None:
+            held += (self._log,)
+        return held if key == "attempt" + self._tag else held + (self._ring,)
 
     def _theta(self):
         return pytree.tree_unflatten(self._th, self._th_spec)
@@ -304,7 +341,15 @@ class AdaptiveSolver:
         theta = self._theta()
         t = self._t
         h = torch.minimum(self._h, self.t1 - t)
-        ks = rk_stages(self.f, tab, u, theta, t, h, fused=self.fused)
+        f = self.f
+        bad = (self.fault_plan.traced_gate("adaptive", "nan",
+                                           self._n_acc + self._n_rej)
+               if self.fault_plan is not None else False)
+        if bad is not False:
+            def f(uu, th, tt, f0=self.f):
+                return tree_map(lambda x: torch.where(
+                    bad, torch.full_like(x, float("nan")), x), f0(uu, th, tt))
+        ks = rk_stages(f, tab, u, theta, t, h, fused=self.fused)
         u_new = rk_combine(tab, u, ks, h, fused=self.fused)
         # embedded error estimate
         err = None
@@ -327,6 +372,15 @@ class AdaptiveSolver:
         h_next = h * torch.where(accept, factor, torch.clamp(factor, max=1.0))
 
         take = accept & live
+        if self._log is not None:
+            # row n_accepted + n_rejected, written by live attempts only
+            idx = torch.clamp(self._n_acc + self._n_rej,
+                              max=self._log.shape[0] - 1).reshape(1)
+            row = torch.stack([t, h, enorm.to(self.dtype),
+                               accept.to(self.dtype)]).unsqueeze(0)
+            with _slot_writes():
+                self._log.index_copy_(0, idx, torch.where(
+                    live, row, self._log.index_select(0, idx)))
         if record:
             pos = self._n_acc if self.offload is None \
                 else self._n_acc - self._ring_base
@@ -378,15 +432,22 @@ class AdaptiveSolver:
         return {k: (g.warmup_ms, g.capture_ms, g.pool_bytes)
                 for k, g in self._graphs.items()}
 
+    @scope("adaptive/fwd")
     def _forward(self, u_leaves, th_leaves, record: bool):
         # a later call overwrites the theta buffers (and, recording, the
         # ring) that an earlier call's reverse sweep would read
         self._generation += 1
         if record:
             self._alloc_ring()
+        if self.obs is not None:
+            self.obs.record("adaptive.solve", method=self.tab.name,
+                            t0=self.t0, t1=self.t1, rtol=self.rtol,
+                            atol=self.atol, max_steps=self.max_steps,
+                            h0=self.h0, offload=self.offload,
+                            segment=self.segment or 1, fused=self.fused)
         graph = None
         if self.capture:
-            key = "attempt_record" if record else "attempt"
+            key = ("attempt_record" if record else "attempt") + self._tag
             if key not in self._graphs:
                 self._t.fill_(self.t1)   # a dead carry: the warm-up is a no-op
                 self._live.zero_()
@@ -406,6 +467,10 @@ class AdaptiveSolver:
                     graph(held, ())
                 self.replays += CHECK_EVERY
         n_acc, n_rej = int(self._n_acc), int(self._n_rej)
+        if self.obs is not None:
+            self.obs.emit_rows("adaptive.step",
+                               self._log[:n_acc + n_rej].clone(), LOG_FIELDS,
+                               index="attempt", casts={"accept": bool})
         if record and self.capture and n_acc > 0 \
                 and "adjoint" not in self._graphs:
             # capture the adjoint step here, on the caller's thread, not
@@ -420,10 +485,14 @@ class AdaptiveSolver:
         replay each when captured) between host reads, and at each read
         the full segments of the ring shipped to a new store."""
         from repro_torch.mem.offload import make_store
-        self.store = make_store(self.offload, **self.store_kw)
+        self.store = make_store(self.offload, fault_plan=self.fault_plan,
+                                **self.store_kw)
+        if self.obs is not None:
+            self.store.bind_obs(self.obs)
         self._ring_base.zero_()
         shipped = 0
-        held = None if graph is None else self._held("attempt_record")
+        held = None if graph is None else self._held(
+            "attempt_record" + self._tag)
         while True:
             # live and the accepted count in one device-to-host copy
             live, n_acc = torch.stack(
@@ -491,7 +560,13 @@ class AdaptiveSolver:
             buf.add_(x)
         slot.sub_(1)
 
+    @scope("adaptive/bwd")
     def _reverse(self, g_leaves, n_acc: int, store=None):
+        if self.obs is not None:
+            self.obs.record("adaptive.adjoint", max_steps=self.max_steps,
+                            segment=self.segment or 1,
+                            tier=store.tier if store is not None
+                            else "device")
         graph = self._graphs.get("adjoint") if self.capture else None
         for buf, x in zip(self._lam, g_leaves):
             buf.copy_(x)
@@ -588,14 +663,13 @@ def odeint_adaptive(f: VectorField, u0: PyTree, theta: PyTree, *,
     an ``AdaptiveSolver`` (``capture=True`` replays CUDA graphs).
     ``offload="spill"``/``"disk"`` keeps the accepted steps in a store,
     ``offload_segment`` a transfer (module docstring); ``snaps_in_ram``
-    and ``offload_dir`` are ``odeint``'s.  See the module docstring for
-    the options that are not ported."""
-    _validate(method, offload, offload_segment, snaps_in_ram, offload_dir,
-              obs, fault_plan, max_steps)
+    and ``offload_dir`` are ``odeint``'s; ``obs`` and ``fault_plan`` the
+    module docstring's."""
     solver = AdaptiveSolver(f, t0=t0, t1=t1, rtol=rtol, atol=atol,
                             max_steps=max_steps, h0=h0, method=method,
                             fused_stages=fused_stages, offload=offload,
                             offload_segment=offload_segment,
                             snaps_in_ram=snaps_in_ram,
-                            offload_dir=offload_dir)
+                            offload_dir=offload_dir, obs=obs,
+                            fault_plan=fault_plan)
     return solver(u0, theta)

@@ -40,6 +40,12 @@ segment per ``prefetch``, newest first, and issues the read of the next
 one (``prefetch_issue``) as soon as it holds the current one.  Device
 memory is then O(segment) checkpoints whatever N_t, and the gradients are
 bitwise the device tier's.
+
+``obs=`` (a ``repro_torch.obs.FlightRecorder``) records ``odeint.solve``
+and binds the recorder to the solve's checkpoint store, whose traffic it
+then records (``mem/offload.py``); the sweeps are ``obs:<policy>/fwd`` and
+``/bwd`` frames under ``torch.profiler`` (``obs.profile.scope``).  Nothing
+a solve computes changes, so its gradients are bitwise those without.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from repro_torch.core.integrators import (
     tree_zeros_like,
 )
 from repro_torch.core.tableaus import get_tableau
+from repro_torch.obs.profile import scope
 
 POLICIES = ("naive", "continuous", "anode", "aca", "pnode", "pnode2",
             "revolve", "revolve2")
@@ -159,8 +166,7 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
     RAM slots (the rest sink to disk files), ``offload_dir`` pins the
     segment files to a directory, ``offload_store`` passes a caller-owned
     spill/disk store (pnode).  The signature and the validation are the
-    JAX package's.  The flight recorder (``obs``: ROADMAP Queue 1 item 11)
-    raises ``NotImplementedError``.
+    JAX package's.  ``obs`` attaches a flight recorder (module docstring).
     """
     n_steps = int(n_steps)
     if n_steps < 1:
@@ -204,10 +210,13 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
     offload_segment, snaps_in_ram = _validate_offload(
         adjoint, offload, offload_segment, snaps_in_ram, offload_dir,
         offload_store)
-    if obs is not None:
-        raise not_ported("odeint", "obs=", 11, "the flight recorder")
     fused = bool(fused_stages)
     t0, dt = float(t0), float(dt)
+    if obs is not None:
+        obs.record("odeint.solve", method=method, adjoint=adjoint,
+                   n_steps=n_steps, dt=dt, t0=t0,
+                   ncheck=None if ncheck is None else int(ncheck),
+                   offload=offload, fused=fused, planned=from_auto)
     if adjoint == "naive":
         u_final, _ = solve_fixed(f, method, u0, theta, t0, dt, n_steps)
         return u_final
@@ -228,7 +237,7 @@ def odeint(f: VectorField, u0: PyTree, theta: PyTree, *, dt: float,
                       else default_segment(n_steps), n_steps)
         store_kw["store"] = offload_store
     solver = _Solver(f, method, t0, dt, n_steps, adjoint, fused, ncheck,
-                     store_kw=store_kw, segment=segment)
+                     store_kw=store_kw, segment=segment, obs=obs)
     return solver(u0, theta)
 
 
@@ -424,7 +433,7 @@ class _Solver:
     """Binds one policy's forward/reverse sweeps to the autograd Function."""
 
     def __init__(self, f, method, t0, dt, n_steps, policy, fused, ncheck,
-                 store_kw=None, segment=None):
+                 store_kw=None, segment=None, obs=None):
         self.f, self.method, self.t0, self.dt = f, method, t0, dt
         self.n_steps, self.policy, self.fused = n_steps, policy, fused
         self.ncheck = ncheck
@@ -433,15 +442,23 @@ class _Solver:
         #: pnode's steps a transfer on the spill/disk tiers (None: on the
         #: device)
         self.segment = segment
+        self.obs = obs
+        #: the sweeps' profiler frames, the JAX package's names
+        self.scope = {"revolve": "revolve", "revolve2": "revolve2"}.get(
+            policy, "pnode_spill" if segment is not None else "adjoint")
 
     def make_store(self):
         """A checkpoint store of the solve's tier: the caller's, or a new
-        one (one a forward sweep)."""
+        one (one a forward sweep), bound to the recorder when there is
+        one."""
         from repro_torch.mem.offload import make_store  # late: import cycle
         kw = dict(self.store_kw)
         store = kw.pop("store", None)
-        return store if store is not None else make_store(kw.pop("tier",
-                                                                 None), **kw)
+        if store is None:
+            store = make_store(kw.pop("tier", None), **kw)
+        if self.obs is not None:
+            store.bind_obs(self.obs)
+        return store
 
     def __call__(self, u0, theta):
         u_leaves, self.u_spec = pytree.tree_flatten(u0)
@@ -714,7 +731,8 @@ class _PolicyFunction(torch.autograd.Function):
         # detached: the checkpoints and the reverse sweep's recomputes must
         # record no graph of their own
         u0, theta = solver.unflatten([x.detach() for x in leaves])
-        u_final, res = solver.forward(u0, theta)
+        with scope(f"{solver.scope}/fwd"):
+            u_final, res = solver.forward(u0, theta)
         out, solver.out_spec = pytree.tree_flatten(u_final)
         ctx.solver, ctx.res, ctx.theta = solver, res, theta
         return tuple(out)
@@ -729,7 +747,8 @@ class _PolicyFunction(torch.autograd.Function):
         g = pytree.tree_unflatten(list(g_leaves), solver.out_spec)
         # torch.func.vjp differentiates inside the sweep even though autograd
         # records nothing here (backward runs under no_grad)
-        lam, mu = solver.backward(res, theta, g)
+        with scope(f"{solver.scope}/bwd"):
+            lam, mu = solver.backward(res, theta, g)
         return (None, *(x.detach() for x in pytree.tree_leaves((lam, mu))))
 
 

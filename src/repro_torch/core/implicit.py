@@ -68,10 +68,24 @@ checkpoints through a store's slots ("host", "spill" or "disk").
 each segment's entry state on the device: a segment whose checked read
 fails is integrated again from that state, bitwise the lost one.
 
+On the eager route ``obs=`` (a ``repro_torch.obs.FlightRecorder``)
+records ``implicit.solve``, one ``implicit.steps`` event a forward sweep
+(the stacked Newton exits: iterations, residual, converged),
+``implicit.recompute`` for the reverse sweep's re-advances,
+``implicit.rescue`` when a rescue or a fault plan is armed, and
+``spill.recover`` (with ``ok``) for each checked segment of the resilient
+route, from the exits the host reads anyway; it is bound to the
+checkpoint store.  ``fault_plan=`` (a ``repro_torch.ft.FaultPlan``)
+poisons the exit of the first Newton attempt of the steps its ``newton``
+specs cover (``nan``/``inf`` the state, ``diverge`` the converged flag),
+keyed by the absolute step index, so a reverse sweep's recompute fires
+them again; with ``rescue`` the retries recover the fault-free bits.  The
+plan also arms the store's spill sites and walks the tier ladder.
+
 Not ported (they raise ``NotImplementedError``): offload in the masked
-form (``capture=True`` or ``lanes=True``; ROADMAP Queue 1 item 10a), the
-flight recorder and fault injection (``obs``, ``fault_plan``; item 11),
-and ``rescue=``/``mass=`` in the masked form (item 7c).
+form (``capture=True`` or ``lanes=True``; ROADMAP Queue 1 item 10a),
+``obs=``/``fault_plan=`` in the masked form (item 11a), and
+``rescue=``/``mass=`` in the masked form (item 7c).
 """
 from __future__ import annotations
 
@@ -100,6 +114,7 @@ from repro_torch.core.integrators import (
     tree_zeros_like,
 )
 from repro_torch.launch.graphs import StepGraph
+from repro_torch.obs.profile import scope
 
 IMPLICIT_METHODS = ("beuler", "cn")
 IMPLICIT_POLICIES = ("pnode", "revolve", "revolve2")
@@ -177,6 +192,7 @@ class _SolverConfig(NamedTuple):
     gmres_iters: int
     gmres_tol: float
     rescue: RescueConfig | None = None
+    fault: object = None     # repro_torch.ft.FaultPlan | None
 
 
 def _stats_zero() -> ImplicitStats:
@@ -270,16 +286,24 @@ def _tree_allfinite(tree) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in pytree.tree_leaves(tree))
 
 
-def _rescued_step(f, cfg: _SolverConfig, u, theta_p, t_n, h):
-    """One implicit step under divergence rescue.  Attempt 0 runs at the
-    configured iteration cap; a failed attempt (not converged, or a
-    non-finite state) falls through ``max_retries`` retries at escalated
-    Newton caps — bit-identical to attempt 0 whenever that would have
-    converged, because the Newton loop exits on residual <= tol — then
-    optionally two h/2 sub-steps as a non-bitwise last resort.  Returns
-    ``(u_next, StepInfo, rescued)``, ``rescued`` 1 when the accepted result
-    came from a retry or the halving."""
-    rescue = cfg.rescue
+def _rescued_step(f, cfg: _SolverConfig, u, theta_p, t_n, h, idx: int):
+    """One implicit step under fault injection and/or divergence rescue.
+    Attempt 0 runs at the configured iteration cap; the plan's ``newton``
+    faults at step ``idx`` poison its exit (``nan``/``inf`` the state and
+    residual, ``diverge`` the converged flag), not f.  A failed attempt
+    (not converged, or a non-finite state) falls through ``max_retries``
+    retries at escalated Newton caps — bit-identical to the fault-free
+    step whenever that would have converged, because the Newton loop
+    exits on residual <= tol — then optionally two h/2 sub-steps as a
+    non-bitwise last resort.  Returns ``(u_next, StepInfo, rescued)``,
+    ``rescued`` 1 when the accepted result came from a retry or the
+    halving."""
+    rescue = cfg.rescue if cfg.rescue is not None else \
+        RescueConfig(max_retries=0, escalate=1, dt_halving=False)
+    fault = cfg.fault
+    gate = ((lambda kind: fault.traced_gate("newton", kind, idx))
+            if fault is not None else (lambda kind: False))
+    bad_nan, bad_inf, forced = gate("nan"), gate("inf"), gate("diverge")
 
     def attempt(iters, uu, tt, hh):
         return implicit_step(f, uu, theta_p, tt, hh, cfg.theta, int(iters),
@@ -303,19 +327,25 @@ def _rescued_step(f, cfg: _SolverConfig, u, theta_p, t_n, h):
         makers.append(halved)
     for i, make in enumerate(makers):
         u1, info = make()
+        if i == 0 and (bad_nan or bad_inf):
+            fill = math.nan if bad_nan else math.inf
+            u1 = tree_map(lambda x: torch.full_like(x, fill), u1)
+            info = info._replace(residual=fill)
+        if i == 0 and forced:
+            info = info._replace(converged=False)
         ok = info.converged and _tree_allfinite(u1)
         if ok or i == len(makers) - 1:
             return u1, info, int(ok and i > 0)
 
 
-def _step(f, cfg: _SolverConfig, u, theta_p, t_n, h):
-    """Returns ``(u_next, StepInfo, rescued)``."""
-    if cfg.rescue is None:
+def _step(f, cfg: _SolverConfig, u, theta_p, t_n, h, idx: int):
+    """Step ``idx``.  Returns ``(u_next, StepInfo, rescued)``."""
+    if cfg.rescue is None and cfg.fault is None:
         u_next, info = implicit_step(f, u, theta_p, t_n, h, cfg.theta,
                                      cfg.newton_iters, cfg.newton_tol,
                                      cfg.gmres_iters, cfg.gmres_tol)
         return u_next, info, 0
-    return _rescued_step(f, cfg, u, theta_p, t_n, h)
+    return _rescued_step(f, cfg, u, theta_p, t_n, h, idx)
 
 
 def _adjoint_step(f, cfg: _SolverConfig, u_n, u_next, theta_p, t_n, h, lam):
@@ -388,14 +418,11 @@ def implicit_checkpoint_floats(n_steps: int, adjoint: str, state_size: int,
 # public API
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, item, name: str) -> NotImplementedError:
-    return not_ported("odeint_implicit", what, item, name)
-
-
 def _mass_refusal() -> ValueError:
     return ValueError(
         "mass-matrix solves support only the default dense path "
-        "(adjoint='pnode', no offload/mem_budget and no rescue/resilient): "
+        "(adjoint='pnode', no offload/mem_budget and no "
+        "rescue/fault_plan/resilient): "
         "the mass operator is closed over statically and the solve is "
         "forward-only")
 
@@ -429,13 +456,10 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
     M u' = f, forward only.  ``t0``/``dt`` are Python floats; step n starts
     at ``t0 + dt * n``.  One eager solve (an ``ImplicitSolver`` with
     ``capture=False, lanes=False``); a caller that solves again and again
-    keeps an ``ImplicitSolver``.  The module docstring lists the options
-    that are not ported."""
-    if obs is not None or fault_plan is not None:
-        raise _not_ported("obs= / fault_plan=", 11,
-                          "the flight recorder and fault injection")
+    keeps an ``ImplicitSolver``.  ``obs`` and ``fault_plan`` are the module
+    docstring's; it lists the options that are not ported."""
     if mass is not None and (offload is not None or mem_budget is not None
-                             or resilient):
+                             or resilient or fault_plan is not None):
         raise _mass_refusal()
     from_auto = adjoint == "auto"
     if from_auto:
@@ -462,7 +486,9 @@ def odeint_implicit(f: VectorField, u0: PyTree, theta_p: PyTree, *, dt: float,
                             mass=mass, rescue=rescue, offload=offload,
                             offload_segment=offload_segment,
                             snaps_in_ram=snaps_in_ram,
-                            offload_dir=offload_dir, resilient=resilient)
+                            offload_dir=offload_dir, resilient=resilient,
+                            obs=obs, fault_plan=fault_plan)
+    solver.planned = from_auto
     u_final, stats = solver(u0, theta_p)
     return (u_final, stats) if return_stats else u_final
 
@@ -609,7 +635,8 @@ class ImplicitSolver:
     per call site of a loss.  ``rescue=`` and ``mass=`` run only on the
     eager route (ROADMAP Queue 1 item 7c), and so do ``offload``,
     ``offload_segment``, ``snaps_in_ram``, ``offload_dir`` and
-    ``resilient`` (``odeint_implicit``'s; item 10a).
+    ``resilient`` (``odeint_implicit``'s; item 10a), and ``obs`` and
+    ``fault_plan`` (item 11a).
     """
 
     def __init__(self, f: VectorField, *, dt: float, n_steps: int,
@@ -621,13 +648,15 @@ class ImplicitSolver:
                  lanes: bool = False, offload: str | None = None,
                  offload_segment: int | None = None,
                  snaps_in_ram: int | None = None,
-                 offload_dir: str | None = None, resilient: bool = False):
+                 offload_dir: str | None = None, resilient: bool = False,
+                 obs=None, fault_plan=None):
         n_steps = int(n_steps)
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         theta = _theta_of(method)
         if mass is not None and (adjoint != "pnode" or rescue is not None
-                                 or offload is not None or resilient):
+                                 or offload is not None or resilient
+                                 or fault_plan is not None):
             raise _mass_refusal()
         if adjoint == "naive":
             raise ValueError(
@@ -657,6 +686,22 @@ class ImplicitSolver:
                 "ImplicitSolver", f"offload={offload!r} with lanes=True or "
                 "capture=True", "10a", "offload in the masked implicit "
                 "form and under lanes")
+        if self.masked and (obs is not None or fault_plan is not None):
+            raise not_ported(
+                "ImplicitSolver", "obs= / fault_plan= with lanes=True or "
+                "capture=True", "11a", "a per-step device log of the "
+                "Newton exits and per-lane Newton gates in the masked form")
+        if fault_plan is not None and offload in ("host", "spill", "disk"):
+            # a downed tier walks the degradation ladder before the store
+            # is built, so the solve runs on a healthy tier
+            from repro_torch.mem.offload import effective_tier
+            eff = effective_tier(offload, fault_plan,
+                                 scanned=adjoint == "pnode", obs=obs)
+            if eff != offload:
+                offload = eff
+                if offload not in ("spill", "disk"):
+                    offload_segment = snaps_in_ram = offload_dir = None
+                resilient = resilient and offload in ("spill", "disk")
         if adjoint in ("revolve", "revolve2"):
             ncheck = _validate_ncheck(adjoint, ncheck, n_steps)
         #: checkpoint tier and its knobs (``repro_torch.mem.offload``)
@@ -671,7 +716,10 @@ class ImplicitSolver:
         self.f = f
         self.cfg = _SolverConfig(theta, int(newton_iters), float(newton_tol),
                                  int(gmres_iters), float(gmres_tol),
-                                 rescue=rescue)
+                                 rescue=rescue, fault=fault_plan)
+        self.method, self.obs, self.fault_plan = method, obs, fault_plan
+        #: the policy came from the memory planner (``implicit.solve``)
+        self.planned = False
         self.t0, self.dt = float(t0), float(dt)
         self.n_steps, self.policy, self.ncheck = n_steps, adjoint, ncheck
         self.mass = mass
@@ -782,12 +830,15 @@ class ImplicitSolver:
         theta_p = pytree.tree_unflatten(th_leaves, self.th_spec)
         u0 = pytree.tree_unflatten(list(u_leaves), self.u_spec)
         if not self.masked:
-            if record:
-                u, stats, res = self.forward(u0, theta_p)
-            else:
-                u, stats, _ = self._advance(u0, theta_p, 0, self.n_steps,
-                                            _stats_zero())
-                res = None
+            self._record_solve()
+            with scope(f"{self._scope}/fwd"):
+                if record:
+                    u, stats, res = self.forward(u0, theta_p)
+                else:
+                    u, stats, _ = self._advance(u0, theta_p, 0,
+                                                self.n_steps, _stats_zero(),
+                                                kind="implicit.steps")
+                    res = None
             return pytree.tree_leaves(u), stats, (res, theta_p)
         # a later call overwrites the buffers an earlier reverse sweep reads
         self.generation += 1
@@ -815,15 +866,63 @@ class ImplicitSolver:
         g = pytree.tree_unflatten(list(g_leaves), self.u_spec)
         if not self.masked:
             res, theta_p = res
-            return pytree.tree_leaves(self.backward(res, theta_p, g))
+            with scope(f"{self._scope}/bwd"):
+                return pytree.tree_leaves(self.backward(res, theta_p, g))
         lam, mu = self.backward(res, None, self._lay.flat(g))
         return (pytree.tree_leaves(self._lay.unflat(lam.clone()))
                 + [x.clone() for x in mu])
 
     def make_store(self, integrity: bool = False):
         from repro_torch.mem.offload import make_store  # late: import cycle
-        return make_store(self.offload, integrity=integrity,
-                          **self.store_kw)
+        store = make_store(self.offload, integrity=integrity,
+                           fault_plan=self.fault_plan, **self.store_kw)
+        if self.obs is not None:
+            store.bind_obs(self.obs)
+        return store
+
+    # -- the flight recorder (eager route) --------------------------------------
+    @property
+    def _scope(self) -> str:
+        """The sweeps' profiler frames, the JAX package's names."""
+        if self.policy != "pnode":
+            return f"imp_{self.policy}"
+        return "imp_spill" if self.segment is not None else "implicit"
+
+    def _record_solve(self) -> None:
+        if self.obs is None:
+            return
+        extra = {}
+        if self.cfg.rescue is not None:
+            extra["rescue"] = True
+        if self.fault_plan is not None:
+            extra["faulted"] = True
+        if self.resilient:
+            extra["resilient"] = True
+        self.obs.record("implicit.solve", method=self.method,
+                        adjoint=self.policy, n_steps=self.n_steps,
+                        dt=self.dt, t0=self.t0,
+                        ncheck=None if self.ncheck is None
+                        else int(self.ncheck),
+                        offload=self.offload,
+                        newton_iters=self.cfg.newton_iters,
+                        gmres_iters=self.cfg.gmres_iters,
+                        planned=self.planned, **extra)
+
+    def _record_steps(self, kind: str, base: int, infos,
+                      rescue: bool = True) -> None:
+        """One stacked event of the exits ``infos`` ((StepInfo, rescued) a
+        step, from step ``base``), and the rescue flags when a rescue or a
+        fault plan is armed."""
+        if self.obs is None:
+            return
+        self.obs.record(kind, _runtime=True, base=base,
+                        iters=[int(i.iters) for i, _ in infos],
+                        residual=[float(i.residual) for i, _ in infos],
+                        converged=[bool(i.converged) for i, _ in infos])
+        if rescue and (self.cfg.rescue is not None
+                       or self.fault_plan is not None):
+            self.obs.record("implicit.rescue", _runtime=True, base=base,
+                            rescued=[int(r) for _, r in infos])
 
     # -- forward sweeps: (u_final, stats, residuals) ---------------------------
     def forward(self, u0, theta_p):
@@ -832,7 +931,8 @@ class ImplicitSolver:
             return self._spill_forward(u0, theta_p)
         if p == "pnode":
             u_final, stats, states = self._advance(u0, theta_p, 0, n,
-                                                   _stats_zero(), [])
+                                                   _stats_zero(), [],
+                                                   kind="implicit.steps")
             return u_final, stats, (states, u_final)
         # revolve and revolve2: the forward sweep's checkpoints are the
         # segment boundaries
@@ -840,7 +940,8 @@ class ImplicitSolver:
         u, stats = u0, _stats_zero()
         for a, b in _segment_bounds(n, self.ncheck):
             store.put(a, u)
-            u, stats, _ = self._advance(u, theta_p, a, b - a, stats)
+            u, stats, _ = self._advance(u, theta_p, a, b - a, stats,
+                                        kind="implicit.steps", rescue=False)
         return u, stats, (store, u)
 
     def _spill_forward(self, u0, theta_p):
@@ -852,6 +953,7 @@ class ImplicitSolver:
         n, seg = self.n_steps, self.segment
         store = self.make_store(integrity=self.resilient)
         u, stats, staging, event, starts = u0, _stats_zero(), None, None, {}
+        log = []
         for base in range(0, n, seg):
             m = min(seg, n - base)
             if self.resilient:
@@ -865,9 +967,21 @@ class ImplicitSolver:
                 for buf, x in zip(pytree.tree_leaves(staging),
                                   pytree.tree_leaves(u)):
                     buf[i].copy_(x)
-                u, stats, _ = self._advance(u, theta_p, base + i, 1, stats)
+                u, stats, _ = self._advance(u, theta_p, base + i, 1, stats,
+                                            log=log)
             event = store.write_batch(base, tree_map(lambda b: b[:m],
                                                      staging))
+        if self.obs is not None:
+            # the JAX package's stacked events: the full segments, then the
+            # rest, and the solve's rescue count
+            n_full = n // seg * seg
+            for a, b in ((0, n_full), (n_full, n)):
+                if b > a:
+                    self._record_steps("implicit.steps", a, log[a:b],
+                                       rescue=False)
+            if self.cfg.rescue is not None or self.fault_plan is not None:
+                self.obs.record("implicit.rescue", _runtime=True, base=0,
+                                rescued=stats.rescued)
         return u, stats, (_Spilled(store, starts), u)
 
     # -- reverse sweeps: (lam, mu) ---------------------------------------------
@@ -907,7 +1021,8 @@ class ImplicitSolver:
                 if kind == "advance":
                     _, start, m = act
                     u, _, _ = self._advance(store.get(start), theta_p, start,
-                                            m)
+                                            m, kind="implicit.recompute",
+                                            rescue=False)
                     store.put(start + m, u)
                 elif kind == "adjoint":
                     _, idx = act
@@ -923,7 +1038,8 @@ class ImplicitSolver:
         # revolve2: re-advance each segment once, saving its states
         for a, b in reversed(_segment_bounds(self.n_steps, self.ncheck)):
             u_b, _, states = self._advance(store.pop(a), theta_p, a, b - a,
-                                           states=[])
+                                           states=[],
+                                           kind="implicit.recompute")
             u_nexts = states[1:] + [u_b]
             for k in reversed(range(b - a)):
                 lam, mu = adjoint(lam, mu, states[k], u_nexts[k], a + k)
@@ -945,6 +1061,9 @@ class ImplicitSolver:
             m = min(seg, n - base)
             if self.resilient:
                 ok, stacked = store.prefetch_checked(base, m)
+                if self.obs is not None:
+                    self.obs.record("spill.recover", _runtime=True,
+                                    base=base, ok=bool(ok))
                 if ok:
                     states = [tree_map(lambda b: b[i], stacked)
                               for i in range(m)]
@@ -964,19 +1083,30 @@ class ImplicitSolver:
         return lam, mu
 
     # -- the two primitives the sweeps run -------------------------------------
-    def _advance(self, u, theta_p, start, m, stats=None, states=None):
+    def _advance(self, u, theta_p, start, m, stats=None, states=None,
+                 kind=None, rescue=True, log=None):
         """Run m implicit steps from u (step indices start..start+m-1),
         appending each pre-step state to ``states`` when given.  Eagerly,
-        the Newton reports are merged into ``stats`` when given; the masked
-        units merge them on the device (read after the forward sweep)."""
+        the Newton reports are merged into ``stats`` when given, appended
+        to ``log`` when given, and recorded as one ``kind`` event (with
+        the rescue flags when ``rescue``) when a recorder is attached; the
+        masked units merge them on the device (read after the forward
+        sweep)."""
         if not self.masked:
+            infos = []
             for k in range(m):
                 if states is not None:
                     states.append(u)
                 u, info, resc = _step(self.f, self.cfg, u, theta_p,
-                                      self._time(start + k), self.dt)
+                                      self._time(start + k), self.dt,
+                                      start + k)
+                infos.append((info, resc))
                 if stats is not None:
                     stats = _stats_merge(stats, info, resc)
+            if log is not None:
+                log.extend(infos)
+            if kind is not None:
+                self._record_steps(kind, start, infos, rescue)
             return u, stats, states
         self._u.copy_(u)
         for k in range(m):

@@ -61,6 +61,33 @@ land on the host; ``prefetch_checked`` returns ``ok=False`` on a missing
 slot or a mismatch and counts it in ``integrity_fail``, so the implicit
 adjoint's ``resilient`` route can recompute the segment.
 
+Fault injection (``make_store(fault_plan=...)``, a
+``repro_torch.ft.FaultPlan``; spill and disk tiers): ``spill.write`` ticks
+once a device-to-host transfer, on the caller's thread in issue order,
+and its fault is applied where the transfer lands: ``drop`` stores
+nothing for it, ``corrupt`` XORs the stored bytes after the crc32 is
+taken (with the JAX package's per-slot salt, so the same plan corrupts
+the same bytes).  ``spill.read`` ticks once a read attempt, also on the
+caller's thread (the prefetch worker only gathers): a ``flake`` is
+retried up to ``max_retries`` times with exponential backoff from
+``retry_backoff_s``, each retry counted in ``retry_cb``; a read that
+still flakes raises (its message says "retries"), except on the checked
+route, where ``prefetch_checked`` returns ``ok=False`` and the caller
+recomputes the segment.  A read never returns zeros for a flaked slot.
+``effective_tier`` walks the degradation ladder past tiers a plan marks
+down.
+
+Flight recorder (``store.bind_obs(recorder)``): the device and host tiers
+record ``store.put``/``store.get``/``store.free`` (``runtime=False``,
+the schedule: once a call, or once at capture inside a ``StepGraph``);
+the spill and disk tiers record ``spill.write``, ``spill.read``,
+``spill.free``, ``spill.dispatch``, ``spill.retry`` and
+``spill.integrity`` (``runtime=True``), with ``store``, ``base``,
+``slots``, ``bytes`` and ``medium`` ("ram" or "disk").  A write is
+recorded when it lands, with the medium it landed in.  The host work of
+each is a ``host_annotation`` frame (``obs:spill/...``) under
+``torch.profiler``.
+
 Counters: every spill/disk store keeps its own (``store.stats``, by
 ``store_id``) and mirrors each increment into a process-wide aggregate
 under one lock:
@@ -73,11 +100,9 @@ store issued each way on the card (one a leaf a transfer).
 
 Not here, as the JAX package's offload module has them: the token
 threading, ``pure_callback`` and its payload cap, ``batch_scale`` and the
-memory-kind query (the host is in control between kernels here); the
+memory-kind query (the host is in control between kernels here); and the
 lane keys of ``ODEEngine`` (``lane_keys``, ``free_request``,
-``request_slots``: ROADMAP Queue 1 item 12); and fault injection
-(``make_store(fault_plan=...)``) and the flight recorder (``bind_obs``):
-item 11.
+``request_slots``: ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -87,6 +112,7 @@ import os
 import shutil
 import tempfile
 import threading
+import time
 import weakref
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
@@ -95,8 +121,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.adjoint import not_ported
-from repro_torch.mem.model import default_segment
+from repro_torch.mem.model import default_segment, tree_bytes
+from repro_torch.obs.profile import host_annotation
 
 __all__ = ["TIERS", "make_store", "effective_tier", "default_segment",
            "CheckpointStore", "DeviceStore", "HostStore", "SpillStore",
@@ -209,19 +235,17 @@ def make_store(tier: Optional[str], *, fault_plan=None,
     it), ``snaps_in_ram`` caps the RAM-resident slots of a spill store
     (the rest sink to disk files), ``disk_dir`` pins the segment files to
     a caller directory (swept of stale files; by default a temporary
-    directory the store deletes).  ``max_retries``/``retry_backoff_s``
-    bound the read retries a fault plan would provoke; ``fault_plan``
-    itself is ROADMAP Queue 1 item 11 and raises.  ``store.requested_tier``
-    records what was asked for."""
-    if fault_plan is not None:
-        raise not_ported("make_store", "fault_plan=", 11,
-                         "the flight recorder and fault injection")
+    directory the store deletes).  ``fault_plan`` arms the spill/disk
+    tiers' fault sites and ``max_retries``/``retry_backoff_s`` bound their
+    read retries (module docstring).  ``store.requested_tier`` records what
+    was asked for."""
     if tier in (None, "device"):
         st: CheckpointStore = DeviceStore()
     elif tier == "host":
         st = HostStore()
     elif tier in ("spill", "disk"):
         sp = DiskStore() if tier == "disk" else SpillStore()
+        sp.fault_plan = fault_plan
         sp.integrity = bool(integrity)
         sp.max_retries = int(max_retries)
         sp.retry_backoff_s = float(retry_backoff_s)
@@ -348,6 +372,15 @@ def _crc_leaves(arrs) -> int:
     return c
 
 
+def _slot_salt(slot) -> int:
+    """The corruption salt of a slot key (the JAX package's): an int
+    passes through, another key hashes through the crc32 of its repr,
+    stable across processes."""
+    if isinstance(slot, (int, np.integer)):
+        return int(slot)
+    return zlib.crc32(repr(slot).encode("utf-8"))
+
+
 def _cleanup_disk(paths: List[str], root: Optional[str], owned: bool) -> None:
     """``weakref.finalize`` target: delete a store's segment files and, if
     the store made its own directory, the directory."""
@@ -384,22 +417,40 @@ class CheckpointStore:
         self.store_id = f"{self.tier}-{next(_STORE_IDS)}"
         #: ``copy_`` calls issued on the card, each way
         self.copies = {"d2h": 0, "h2d": 0}
+        self._obs = None
 
     def bind_obs(self, recorder) -> None:
-        raise not_ported("CheckpointStore.bind_obs", "the flight recorder",
-                         11, "the flight recorder and fault injection")
+        """Attach a ``repro_torch.obs.FlightRecorder`` (module
+        docstring).  The recorder lands this store's pending writes before
+        it reads its events."""
+        self._obs = recorder
+        recorder.watch(self)
+
+    def _note(self, kind: str, slot, tree: PyTree = None) -> None:
+        if self._obs is None:
+            return
+        self._obs.record(kind, store=self.store_id,
+                         tier=self.effective_tier, slot=slot,
+                         bytes=tree_bytes(tree) if tree is not None else 0)
 
     # -- slot-addressed ------------------------------------------------------
     def put(self, slot, tree: PyTree) -> None:
+        self._note("store.put", slot, tree)
         self._vals[slot] = self._to_store(tree)
 
     def get(self, slot) -> PyTree:
-        return self._from_store(self._vals[slot])
+        tree = self._from_store(self._vals[slot])
+        self._note("store.get", slot, tree)
+        return tree
 
     def pop(self, slot) -> PyTree:
-        return self._from_store(self._vals.pop(slot))
+        tree = self._from_store(self._vals.pop(slot))
+        self._note("store.get", slot, tree)
+        self._note("store.free", slot)
+        return tree
 
     def free(self, slot) -> None:
+        self._note("store.free", slot)
         self._vals.pop(slot, None)
 
     # -- segment-batched -----------------------------------------------------
@@ -509,6 +560,9 @@ class SpillStore(CheckpointStore):
             = {}
         self.stats: Dict[str, int] = {k: 0 for k in _STAT_KEYS}
         _STORES[self.store_id] = self
+        #: fault plan and integrity/retry knobs (``make_store``); dormant
+        #: by default
+        self.fault_plan = None
         self.integrity = False
         self.max_retries = 3
         self.retry_backoff_s = 1e-3
@@ -616,20 +670,21 @@ class SpillStore(CheckpointStore):
             self._file_slots[path].add(slot)
         return sum(a.nbytes for leaves in rows.values() for a in leaves)
 
-    def _store_rows(self, rows: Dict[Any, List[np.ndarray]]) -> None:
+    def _store_rows(self, rows: Dict[Any, List[np.ndarray]]) -> str:
         """Route a batch of slots to RAM or to one disk file, by
-        ``snaps_in_ram``."""
+        ``snaps_in_ram``; returns the medium ("ram" or "disk")."""
         if not rows:
-            return
+            return "ram"
         with self._io_lock:
             if self._ram_has_room(rows):
                 for slot, leaves in rows.items():
                     if slot in self._disk:
                         self._drop_slot(slot)
                     self._host_insert(slot, leaves)
-                return
+                return "ram"
             dbytes = self._disk_write_rows(rows)
         self._tally_counter("disk_write_bytes", dbytes)
+        return "disk"
 
     def _disk_read_slot(self, slot):
         # under _io_lock; the one-file cache fits the segment-aligned reads
@@ -683,6 +738,31 @@ class SpillStore(CheckpointStore):
                 self.stats[key] += n
                 _AGG[key] += n
 
+    def _event(self, kind: str, **data) -> None:
+        if self._obs is not None:
+            self._obs.record(kind, _runtime=True, store=self.store_id,
+                             **data)
+
+    def _read_attempt_ok(self, base) -> bool:
+        """One logical read, retried with exponential backoff while the
+        fault plan flakes it.  Every attempt ticks ``spill.read`` on the
+        caller's thread (a spec's ``count`` window spans retries:
+        transient faults are escaped by retrying, persistent ones exhaust
+        the budget).  False only when all ``max_retries`` retries
+        flaked."""
+        if self.fault_plan is None:
+            return True
+        for attempt in range(self.max_retries + 1):
+            spec = self.fault_plan.tick("spill.read")
+            if spec is None or spec.kind != "flake":
+                return True
+            if attempt == self.max_retries:
+                return False
+            self._tally_counter("retry_cb")
+            self._event("spill.retry", base=base, attempt=attempt + 1)
+            time.sleep(self.retry_backoff_s * (2 ** attempt))
+        return False
+
     def _leaves_intact(self, slot, leaves) -> bool:
         """Present and, with integrity on, matching the write-time crc32."""
         if leaves is None:
@@ -701,12 +781,18 @@ class SpillStore(CheckpointStore):
               metas) -> Optional["torch.cuda.Event"]:
         """Copy ``len(slots)`` slots whose leaves are stacked on axis 0 to
         the host; on the card as one pending batch (landed later), on the
-        CPU at once.  Returns the card's copy event."""
+        CPU at once.  The transfer ticks ``spill.write`` here, in issue
+        order; its fault applies where it lands.  Returns the card's copy
+        event."""
         m = len(slots)
         dev = self._device(leaves)
+        spec = (self.fault_plan.tick("spill.write")
+                if self.fault_plan is not None else None)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
         if dev.type != "cuda":
             views = [_bytes_of(x).reshape(m, -1) for x in leaves]
-            self._land(slots, [[v[i] for v in views] for i in range(m)])
+            self._land(slots, [[v[i] for v in views] for i in range(m)],
+                       spec, nbytes)
             return None
         _no_capture()
         self.sync()  # one batch in flight a store: its buffer is freed
@@ -725,14 +811,15 @@ class SpillStore(CheckpointStore):
                 self.copies["d2h"] += 1
             ev = torch.cuda.Event()
             ev.record(stream)
-        self._pending.append((slots, buf, offs, metas, ev, dev))
+        self._pending.append((slots, buf, offs, metas, ev, dev, spec, nbytes))
         return ev
 
     def sync(self) -> None:
         """Land every pending device-to-host batch: wait for its copy, then
         move its bytes into the RAM dict or a disk file."""
         while self._pending:
-            slots, buf, offs, metas, ev, dev = self._pending.pop(0)
+            slots, buf, offs, metas, ev, dev, spec, nbytes = \
+                self._pending.pop(0)
             ev.synchronize()  # the host reads the buffer only after this
             host = buf.numpy()
             rows = []
@@ -742,7 +829,7 @@ class SpillStore(CheckpointStore):
                     rb = _nbytes(shape, dtype)
                     row.append(host[off + i * rb:off + (i + 1) * rb])
                 rows.append(row)
-            self._land(slots, rows)
+            self._land(slots, rows, spec, nbytes)
             _pool(dev).give(buf)
 
     def _settle(self) -> None:
@@ -751,17 +838,28 @@ class SpillStore(CheckpointStore):
         for fut, _, _ in list(self._inflight.values()):
             fut.exception()
 
-    def _land(self, slots, rows) -> None:
+    def _land(self, slots, rows, spec=None, nbytes: int = 0) -> None:
         """Copy each slot's leaf bytes off their buffer, checksum them when
-        integrity is on, and store them."""
-        self._settle()
-        out = {}
-        for slot, row in zip(slots, rows):
-            arrs = [np.array(a, dtype=np.uint8, copy=True) for a in row]
-            if self.integrity:
-                self._sums[slot] = _crc_leaves(arrs)
-            out[slot] = arrs
-        self._store_rows(out)
+        integrity is on, apply the transfer's ``spill.write`` fault (the
+        checksum is over the clean bytes: corruption at rest), and store
+        them."""
+        with host_annotation("spill/write"):
+            self._settle()
+            out = {}
+            for slot, row in zip(slots, rows):
+                arrs = [np.array(a, dtype=np.uint8, copy=True) for a in row]
+                if self.integrity:
+                    self._sums[slot] = _crc_leaves(arrs)
+                if spec is not None and spec.kind == "drop":
+                    self._drop_slot(slot)
+                    continue
+                if spec is not None and spec.kind == "corrupt":
+                    arrs = self.fault_plan.corrupt_arrays(
+                        arrs, salt=_slot_salt(slot))
+                out[slot] = arrs
+            medium = self._store_rows(out)
+            self._event("spill.write", base=slots[0] if slots else -1,
+                        slots=len(slots), bytes=nbytes, medium=medium)
 
     def _gather(self, host: np.ndarray, offs, metas, base: int, seg: int):
         """Fill a host batch buffer with slots ``[base, base+seg)`` (zeros
@@ -837,6 +935,15 @@ class SpillStore(CheckpointStore):
 
     def _read_slot(self, slot):
         self.sync()
+        with host_annotation("spill/read"):
+            return self._read_slot_host(slot)
+
+    def _read_slot_host(self, slot):
+        if not self._read_attempt_ok(slot):
+            # the slot-addressed schedule has no recompute fallback
+            raise RuntimeError(
+                f"spill store: read of slot {slot} still failing after "
+                f"{self.max_retries} retries")
         leaves, dbytes = self._slot_read_any(slot)
         if leaves is None:
             # a schedule bug or a reordered free: fail loudly rather than
@@ -856,9 +963,10 @@ class SpillStore(CheckpointStore):
         for off, a in zip(offs, leaves):
             host[off:off + a.nbytes] = a
         out = self._receive(buf, offs, metas, 1, self._dev)
-        self._tally("read", slots=1,
-                    nbytes=sum(_nbytes(s, d) for s, d in metas),
-                    disk_bytes=dbytes)
+        nbytes = sum(_nbytes(s, d) for s, d in metas)
+        self._tally("read", slots=1, nbytes=nbytes, disk_bytes=dbytes)
+        self._event("spill.read", base=slot, slots=1, bytes=nbytes,
+                    medium="disk" if dbytes else "ram")
         return pytree.tree_unflatten([t[0] for t in out], spec)
 
     def get(self, slot) -> PyTree:
@@ -871,10 +979,13 @@ class SpillStore(CheckpointStore):
 
     def free(self, slot) -> None:
         self.sync()  # a pending write of the slot must not land after this
-        self._settle()
-        self._drop_slot(slot)
-        self._sums.pop(slot, None)
-        self._tally_counter("free_cb")
+        with host_annotation("spill/free"):
+            self._settle()
+            self._drop_slot(slot)
+            self._sums.pop(slot, None)
+            self._tally_counter("free_cb")
+            self._event("spill.free", base=slot, slots=1, bytes=0,
+                        medium="ram")
 
     # -- segment-batched ---------------------------------------------------------
     def write_batch(self, base: int, tree: PyTree):
@@ -912,9 +1023,20 @@ class SpillStore(CheckpointStore):
         fut = self._exec.submit(self._gather, host, offs, metas, base, seg)
         self._inflight[base] = (fut, buf, seg)
         self._tally_counter("dispatch_cb")
+        self._event("spill.dispatch", base=base, slots=seg)
 
     def _fetch(self, base: int, seg: int, checked: bool, out):
         self.sync()
+        with host_annotation("spill/prefetch"):
+            return self._fetch_host(base, seg, checked, out)
+
+    def _fetch_host(self, base: int, seg: int, checked: bool, out):
+        ok = self._read_attempt_ok(base)
+        if not ok and not checked:
+            raise RuntimeError(
+                f"spill store: prefetch at base {base} still failing after "
+                f"{self.max_retries} retries and this path has no "
+                "recompute fallback")
         spec, metas = self._meta["idx"]
         offs, total = _regions(metas, seg)
         hit = None
@@ -931,16 +1053,19 @@ class SpillStore(CheckpointStore):
         else:
             buf, present, dbytes, got = hit
             self._tally_counter("prefetch_hit_cb")
-        ok = True
-        if checked:
+        if not ok:  # flaked past every retry: the checked caller recomputes
+            (buf if torch.is_tensor(buf) else torch.from_numpy(buf)).zero_()
+        elif checked:
             for i in range(seg):
                 if not self._leaves_intact(base + i, got[i]):
                     ok = False
                     self._tally_counter("integrity_fail")
+                    self._event("spill.integrity", slot=base + i, base=base)
         tensors = self._receive(buf, offs, metas, seg, self._dev, out)
-        self._tally("read", slots=seg,
-                    nbytes=seg * sum(_nbytes(s, d) for s, d in metas),
-                    disk_bytes=dbytes)
+        nbytes = seg * sum(_nbytes(s, d) for s, d in metas)
+        self._tally("read", slots=seg, nbytes=nbytes, disk_bytes=dbytes)
+        self._event("spill.read", base=base, slots=seg, bytes=nbytes,
+                    medium="disk" if dbytes and ok else "ram")
         return ok, pytree.tree_unflatten(tensors, spec)
 
     def prefetch(self, base: int, seg: int, out=None) -> PyTree:

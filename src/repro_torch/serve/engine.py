@@ -19,8 +19,20 @@ device-bound and is where the flash and RWKV6 kernels launch), and so
 does sampling, as the JAX package jits decode alone: the Gumbel draws at
 ``temperature > 0`` use the engine's generator outside the graph.
 
-Not ported yet: ``ODEEngine`` (ROADMAP Queue 1 item 12), the mesh and
-sharded replicas (item 14), and the fault sites / metrics hooks (item 11).
+Faults and metrics, as the JAX package's engine has them:
+``fault_plan=`` arms the queue's ``serve.request`` site and the
+``serve.decode`` site, which ticks once a decode step; its ``nan`` kind
+poisons lane 0's logits of that step.  With a plan armed, the engine reads
+a per-lane finite flag of the logits after each step (one host read a
+step) and resolves a lane that went non-finite with an error, while its
+batch-mates' tokens are the clean run's bit for bit; unarmed, the
+replayed decode is unchanged.  ``registry=`` receives the queue's metrics
+plus the ``serve.batch_occupancy`` histogram and the ``serve.errors`` /
+``serve.completed`` counters; ``obs=`` the queue's events plus
+``serve.prefill`` and ``serve.retire``.
+
+Not ported yet: ``ODEEngine`` (ROADMAP Queue 1 item 12) and the mesh and
+sharded replicas (item 14).
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ class _Wave:
         self.pos0 = int(pos0)
         self.max_gen = int(max_gen)
         self.emitted: List[torch.Tensor] = []   # per-step (lanes,) tokens
+        self.errored: set = set()               # lanes with non-finite logits
 
     @property
     def done(self) -> bool:
@@ -80,12 +93,15 @@ class LMEngine:
     pool (``decode_graph.pool_bytes``).  Decode is captured with
     ``index_copy_`` writing the KV cache, which a capture refuses under
     ``torch.use_deterministic_algorithms(True)``.
+
+    ``fault_plan``, ``registry`` and ``obs`` are the module docstring's.
     """
 
     def __init__(self, cfg, *, lanes: int, prompt_len: int, max_gen: int,
                  decode_slice: int = 4, temperature: float = 0.0,
                  seed: int = 0, params=None, device="cuda",
-                 aging: float = 1.0):
+                 aging: float = 1.0, fault_plan=None, registry=None,
+                 obs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lanes = int(lanes)
@@ -95,10 +111,13 @@ class LMEngine:
         self.temperature = float(temperature)
         self.seed = int(seed)
         self.max_seq = self.prompt_len + self.max_gen
+        self.fault_plan = fault_plan
+        self.registry = registry
+        self.obs = obs
         self.queue = RequestQueue(
             kinds=("lm",), dim=self.prompt_len,
             max_payload_bytes=max(1 << 20, 8 * self.prompt_len),
-            aging=aging)
+            aging=aging, fault_plan=fault_plan, registry=registry, obs=obs)
         self.call_log: List[Dict[str, Any]] = []
         self._active: Optional[_Wave] = None
         self._staged: Optional[_Wave] = None
@@ -172,6 +191,12 @@ class LMEngine:
         self.call_log.append({"op": "prefill", "wall_s": wall,
                               "tokens": len(batch), "compile": compile_,
                               "lanes": len(batch)})
+        if self.obs is not None:
+            self.obs.record("serve.prefill", _runtime=True,
+                            lanes=len(batch), wall_s=wall)
+        if self.registry is not None:
+            self.registry.observe("serve.batch_occupancy",
+                                  len(batch) / self.lanes)
         return wave
 
     def _decode_logits(self, held, copied) -> torch.Tensor:
@@ -199,6 +224,7 @@ class LMEngine:
         if k <= 0:
             return
         compile_ = self._decode_calls == 0
+        armed = self.fault_plan is not None
         t_start = time.time()
         with torch.no_grad():
             if wave.state is not self._state:
@@ -208,6 +234,16 @@ class LMEngine:
                 i = len(wave.emitted) - 1  # decode steps taken so far
                 self._pos.fill_(wave.pos0 + i)
                 logits = self.decode_graph(held, (wave.tok, self._pos))
+                if armed:
+                    spec = self.fault_plan.tick("serve.decode")
+                    if spec is not None and spec.kind == "nan":
+                        # poison exactly one lane's logits: a request-level
+                        # fault, not a batch-level one
+                        logits = logits.clone()
+                        logits[0] = float("nan")
+                    bad = (~torch.isfinite(logits)).any(dim=-1).cpu()
+                    wave.errored.update(
+                        int(j) for j in torch.nonzero(bad).flatten())
                 # read before the next replay overwrites the logits
                 wave.tok = self._sample(torch.nan_to_num(logits))[:, None]
                 wave.emitted.append(wave.tok[:, 0])
@@ -222,7 +258,21 @@ class LMEngine:
         tick = self.queue.tick
         grid = torch.stack(wave.emitted, dim=1).cpu().numpy().astype(np.int32)
         for i, (req, ticket) in enumerate(wave.batch):
+            if i in wave.errored:
+                if self.registry is not None:
+                    self.registry.inc("serve.errors")
+                ticket.set_error(RuntimeError(
+                    f"request {req.rid}: poisoned decode (serve.decode)"),
+                    tick)
+                continue
+            if self.registry is not None:
+                self.registry.inc("serve.completed")
             ticket.set_result(grid[i, :req.meta["gen"]].copy(), tick)
+        if self.obs is not None:
+            self.obs.record("serve.retire", _runtime=True,
+                            lanes=len(wave.batch),
+                            tokens=len(wave.emitted) * len(wave.batch),
+                            errored=len(wave.errored))
 
     def step(self) -> bool:
         """One scheduling quantum.  Activates a staged/new wave, decodes

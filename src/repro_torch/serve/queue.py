@@ -1,7 +1,9 @@
 """Request queue + continuous-batching scheduler, the port of
-``repro/serve/queue.py`` (numpy and threading there already).  The
-``serve.request`` fault site and the metrics-registry / flight-recorder
-hooks come with the port of ``obs``/``ft`` (ROADMAP Queue 1 item 11).
+``repro/serve/queue.py`` (numpy and threading there already), with its
+``serve.request`` fault site (``fault_plan=``), its metrics
+(``registry=``: the ``serve.submitted``/``serve.rejected`` counters and
+the ``serve.queue_depth`` gauge) and its events (``obs=``:
+``queue.submit``, ``queue.reject``, ``queue.schedule``).
 
 Deterministic by construction: scheduling state advances in logical
 *ticks* (one per ``next_batch`` call), never on the wall clock, so a
@@ -123,14 +125,22 @@ class RequestQueue:
     ``dim``/``max_payload_bytes`` define the admission contract for array
     payloads; ``kinds`` the accepted request kinds; ``aging`` the
     ticks-to-priority exchange rate (0 disables aging: strict priority,
-    which CAN starve; the default 1.0 cannot)."""
+    which CAN starve; the default 1.0 cannot).  ``fault_plan`` arms the
+    ``serve.request`` site; ``registry`` (a ``MetricsRegistry``) receives
+    ``serve.submitted``/``serve.rejected`` counters and the
+    ``serve.queue_depth`` gauge; ``obs`` (a ``FlightRecorder``) receives
+    ``queue.submit``/``queue.reject``/``queue.schedule`` events."""
 
     def __init__(self, *, kinds: Sequence[str], dim: Optional[int] = None,
-                 max_payload_bytes: int = 1 << 20, aging: float = 1.0):
+                 max_payload_bytes: int = 1 << 20, aging: float = 1.0,
+                 fault_plan=None, registry=None, obs=None):
         self.kinds = tuple(kinds)
         self.dim = dim
         self.max_payload_bytes = int(max_payload_bytes)
         self.aging = float(aging)
+        self.fault_plan = fault_plan
+        self.registry = registry
+        self.obs = obs
         self._lock = threading.Lock()
         self._pending: List[Tuple[Request, Ticket]] = []
         self._tick = 0
@@ -148,6 +158,14 @@ class RequestQueue:
 
     # -- admission -----------------------------------------------------------
     def _validate(self, kind: str, payload) -> np.ndarray:
+        if self.fault_plan is not None:
+            spec = self.fault_plan.tick("serve.request")
+            if spec is not None and spec.kind == "malformed":
+                raise AdmissionError(
+                    "rejected: injected malformed request (serve.request)")
+            if spec is not None and spec.kind == "oversize":
+                raise AdmissionError(
+                    "rejected: injected oversized request (serve.request)")
         if kind not in self.kinds:
             raise AdmissionError(
                 f"rejected: unknown kind {kind!r}; one of {self.kinds}")
@@ -175,7 +193,14 @@ class RequestQueue:
                meta: Optional[Dict[str, Any]] = None) -> Ticket:
         """Admit one request; raises ``AdmissionError`` on rejection.
         Returns a ``Ticket`` the engine resolves."""
-        arr = self._validate(kind, payload)
+        try:
+            arr = self._validate(kind, payload)
+        except AdmissionError:
+            if self.registry is not None:
+                self.registry.inc("serve.rejected")
+            if self.obs is not None:
+                self.obs.record("queue.reject", _runtime=True, req_kind=kind)
+            raise
         with self._lock:
             n = next(self._seq)
             rid = rid if rid is not None else f"req-{n}"
@@ -183,6 +208,14 @@ class RequestQueue:
                           dict(meta or {}))
             ticket = Ticket(rid, self._tick)
             self._pending.append((req, ticket))
+            depth = len(self._pending)
+        if self.registry is not None:
+            self.registry.inc("serve.submitted")
+            self.registry.set_gauge("serve.queue_depth", depth)
+        if self.obs is not None:
+            self.obs.record("queue.submit", _runtime=True, rid=rid,
+                            req_kind=kind, priority=float(priority),
+                            depth=depth)
         return ticket
 
     # -- scheduling ----------------------------------------------------------
@@ -210,4 +243,13 @@ class RequestQueue:
             batch = [self._pending[i] for i in take]
             self._pending = [p for i, p in enumerate(self._pending)
                              if i not in taken]
+            depth = len(self._pending)
+            tick = self._tick
+        if self.registry is not None:
+            self.registry.set_gauge("serve.queue_depth", depth)
+        if self.obs is not None and batch:
+            self.obs.record("queue.schedule", _runtime=True, tick=tick,
+                            req_kind=kind, batch=[r.rid for r, _ in batch],
+                            waited=[tick - r.enqueue_tick for r, _ in batch],
+                            depth=depth)
         return batch

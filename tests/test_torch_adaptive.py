@@ -305,15 +305,16 @@ def test_a_call_without_recording_invalidates_the_earlier_reverse_sweep():
 
 
 #: (keywords, what happens): the ring's spill/disk tiers run; a tier knob
-#: without its tier is the reference's ValueError; obs= and fault_plan=
-#: are still refused (item 11).  The ids are the cases' ids from when
-#: every one was refused.
+#: without its tier is the reference's ValueError; obs= (a recorder) and
+#: fault_plan= (a spec past the last attempt, so the gate is armed but
+#: never fires) run bitwise.  The ids are the cases' ids from when every
+#: one was refused.
 OPTION_CASES = [
     (dict(offload="spill"), "runs"), (dict(offload="disk"), "runs"),
     (dict(offload_segment=4), "offload_segment only applies"),
     (dict(snaps_in_ram=2), "snaps_in_ram is the spill tier"),
     (dict(offload_dir="/nonexistent"), "offload_dir pins"),
-    (dict(obs=object()), "item 11"), (dict(fault_plan=object()), "item 11")]
+    (dict(obs="recorder"), "runs"), (dict(fault_plan="armed"), "runs")]
 
 
 @pytest.mark.parametrize(
@@ -321,10 +322,13 @@ OPTION_CASES = [
     ids=[f"kw{i}-item {11 if i >= 5 else 10}" for i in range(7)])
 def test_unported_options_raise_naming_their_roadmap_item(kw, outcome):
     u0, th = _problem_np()
-    if outcome == "item 11":
-        with pytest.raises(NotImplementedError, match=outcome):
-            tad.odeint_adaptive(_tf, _t(u0), _t(th), t0=0.0, t1=1.0, **kw)
-        return
+    if kw.get("obs") == "recorder":
+        from repro_torch.obs import FlightRecorder
+        kw = dict(kw, obs=FlightRecorder())
+    if kw.get("fault_plan") == "armed":
+        from repro_torch.ft import FaultPlan, FaultSpec
+        kw = dict(kw, fault_plan=FaultPlan([FaultSpec("adaptive", 10 ** 6,
+                                                      "nan")]))
     if outcome != "runs":
         for odeint_adaptive, f, t in (
                 (tad.odeint_adaptive, _tf, _t),
@@ -337,6 +341,9 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, outcome):
     b = _port_run(u0, th, rtol=TOL, atol=TOL)
     assert a[2] == b[2] and torch.equal(a[0], b[0])
     assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    if "obs" in kw:
+        assert kw["obs"].accepted_rejected() == (a[2].n_accepted,
+                                                 a[2].n_rejected)
 
 
 def test_validation_follows_the_reference():

@@ -227,8 +227,9 @@ def test_ncheck_validated(bad):
 
 #: (keywords, what happens): a budget under every in-device candidate
 #: plans pnode on the spill tier, which runs; a tier knob without its tier
-#: is the reference's ValueError; obs= is still refused (item 11).  The
-#: ids are the cases' ids from when every memory keyword was refused.
+#: is the reference's ValueError; obs= runs (a flight recorder) and
+#: records the solve.  The ids are the cases' ids from when every memory
+#: keyword was refused.
 MEMORY_KEYWORD_CASES = [
     (dict(adjoint="auto", mem_budget=1), "runs"),
     (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "runs"),
@@ -238,7 +239,7 @@ MEMORY_KEYWORD_CASES = [
     (dict(snaps_in_ram=1), "snaps_in_ram is the spill tier"),
     (dict(offload_dir="/x"), "offload_dir pins"),
     (dict(offload_store=object()), "offload_store supplies"),
-    (dict(obs=object()), "item 11")]
+    (dict(obs="recorder"), "runs")]
 
 
 @pytest.mark.parametrize(
@@ -248,15 +249,12 @@ def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, outcome):
     """The reference's memory keywords: the offload tiers and a plan that
     spills run, bitwise pnode's gradient on the device tier (the
     quadrature form too); a knob without its tier raises the reference's
-    ValueError, as the JAX package does; obs= names its ROADMAP item."""
+    ValueError, as the JAX package does; obs= records the solve and
+    leaves the gradient bitwise."""
     u0n, thn = _problem_np()
-    args = dict(dt=0.1, n_steps=3)
-    args.update(kw)
-    if outcome == "item 11":
-        with pytest.raises(NotImplementedError, match=outcome):
-            tadj.odeint(_tf, _t(u0n), {k: _t(v) for k, v in thn.items()},
-                        **args)
-        return
+    if kw.get("obs") == "recorder":
+        from repro_torch.obs import FlightRecorder
+        kw = dict(kw, obs=FlightRecorder())
     if outcome != "runs":
         jkw = {k: v for k, v in kw.items() if k != "offload_store"}
         if "offload_store" in kw:
@@ -273,6 +271,9 @@ def test_odeint_memory_keywords_raise_naming_their_roadmap_item(kw, outcome):
     b = _port_grads("pnode", dt=0.1, n_steps=3)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if "obs" in kw:
+        (ev,) = kw["obs"].events("odeint.solve")
+        assert (ev.data["adjoint"], ev.data["n_steps"]) == ("pnode", 3)
     if "offload" in kw:
         outs = [tadj.odeint_with_quadrature(
             _tf, lambda u, th, t: torch.sum(u ** 2), _t(u0n),

@@ -1238,3 +1238,75 @@ def test_step_graph_refuses_on_the_card(cuda):
     with pytest.raises(RuntimeError):
         bad(a, torch.ones(4, device=cuda))
     assert bad.graph is None
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder, device counters and checkpoint snapshots on the card
+# ---------------------------------------------------------------------------
+
+def test_adaptive_attempt_log_captured_equals_eager(cuda):
+    """The attempt log written inside the captured attempt (no host read)
+    gives the eager solver's events and gradient bitwise, with a fault
+    gated on the device attempt counter."""
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.obs import FlightRecorder
+    rs = np.random.RandomState(3)
+    u0 = torch.tensor(rs.randn(64, 6), device=cuda)
+    W = torch.tensor(0.6 * rs.randn(6, 6), device=cuda)
+
+    def f(u, w, t):
+        return torch.tanh(u @ w) - 0.2 * u
+
+    outs = []
+    for capture in (False, True):
+        rec = FlightRecorder()
+        solver = tad.AdaptiveSolver(
+            f, t0=0.0, t1=1.0, max_steps=64, fused_stages=True,
+            capture=capture, obs=rec,
+            fault_plan=FaultPlan([FaultSpec("adaptive", 2, "nan", 2)]))
+        a, w = u0.clone().requires_grad_(True), W.clone().requires_grad_(True)
+        uf, info = solver(a, w)
+        g = torch.autograd.grad((uf ** 2).sum(), [a, w])
+        steps = rec.adaptive_steps()
+        outs.append(([uf.detach(), *g], info, steps))
+    (ga, ia, sa), (gb, ib, sb) = outs
+    assert ia == ib and ib.n_rejected >= 2 and _same_bits(ga, gb)
+    assert [(d["attempt"], d["accept"]) for d in sa] == \
+        [(d["attempt"], d["accept"]) for d in sb]
+    for key in ("t", "h", "err_norm"):
+        np.testing.assert_array_equal([d[key] for d in sa],
+                                      [d[key] for d in sb])
+
+
+def test_jit_counter_counts_every_replay(cuda):
+    from repro_torch.obs import JitCounter
+    counter = JitCounter("taps")
+    x = torch.zeros(4, device=cuda)
+    graph = StepGraph(lambda held, copied: (counter.tap(held[0]) + 1,),
+                      clone_outputs=True)
+    for _ in range(5):
+        graph((x,), ())
+    # the warm-up, then the replays (the capture itself runs no kernel)
+    assert counter.count == 1 + 5
+    counter.reset()
+    graph((x,), ())
+    assert counter.count == 1
+
+
+def test_checkpoint_snapshot_survives_the_sources_going(cuda, tmp_path):
+    """``CheckpointManager.save`` copies on a copy stream it does not wait
+    for; the sources are dropped and their memory reused at once, and the
+    committed bytes are still the saved values."""
+    from repro_torch.ckpt import CheckpointManager
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(1 << 22, generator=gen, device=cuda),
+            "step": 3}
+    want = tree["w"].cpu()
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, tree)
+    del tree
+    junk = [torch.full((1 << 22,), 7.0, device=cuda) for _ in range(4)]
+    got, step = mgr.restore_latest({"w": torch.zeros(1 << 22, device=cuda),
+                                    "step": 0})
+    assert step == 1 and got["step"] == 3 and got["w"].is_cuda
+    assert torch.equal(got["w"].cpu(), want) and junk

@@ -275,8 +275,9 @@ def test_cost_model_matches_jax():
 
 #: (keywords, what happens): the tiers on the eager route and a plan
 #: that spills run; a knob without its tier (or host with pnode) is the
-#: reference's ValueError; obs= and fault_plan= are still refused (item
-#: 11).  The ids are the cases' ids from when every one was refused.
+#: reference's ValueError; obs= (a recorder) and fault_plan= (a Newton
+#: spec past the last step: the gated route, firing nowhere) run bitwise.
+#: The ids are the cases' ids from when every one was refused.
 OPTION_CASES = [
     (dict(offload="spill"), "runs"),
     (dict(offload="host"), "offload='host' applies"),
@@ -287,7 +288,7 @@ OPTION_CASES = [
     (dict(resilient=True), "resilient=True"),
     (dict(adjoint="auto", mem_budget=1), "runs"),
     (dict(adjoint="auto", mem_budget=1, mem_verify="model"), "runs"),
-    (dict(obs=object()), "item 11"), (dict(fault_plan=object()), "item 11")]
+    (dict(obs="recorder"), "runs"), (dict(fault_plan="armed"), "runs")]
 
 
 @pytest.mark.parametrize(
@@ -297,11 +298,13 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, outcome):
     """A budget under every in-device candidate plans the spill tier, which
     runs: every running case gives pnode's device gradient bitwise."""
     u0, th = _problem_np()
-    if outcome == "item 11":
-        with pytest.raises(NotImplementedError, match=outcome):
-            timp.odeint_implicit(_tf, _t(u0), _t(th), dt=DT, n_steps=N,
-                                 **kw)
-        return
+    if kw.get("obs") == "recorder":
+        from repro_torch.obs import FlightRecorder
+        kw = dict(kw, obs=FlightRecorder())
+    if kw.get("fault_plan") == "armed":
+        from repro_torch.ft import FaultPlan, FaultSpec
+        kw = dict(kw, fault_plan=FaultPlan([FaultSpec("newton", 10 ** 6,
+                                                      "nan")]))
     if outcome != "runs":
         for odeint_implicit, f, t in (
                 (timp.odeint_implicit, _tf, _t),
@@ -315,6 +318,8 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, outcome):
     assert torch.equal(a[0], b[0])
     for x, y in zip(a[1], b[1]):
         assert torch.equal(x, y)
+    if "obs" in kw:
+        assert len(kw["obs"].implicit_steps()) == N
 
 
 def test_mem_budget_without_auto_raises_the_references_value_error():

@@ -129,7 +129,10 @@ def test_port_sources_import_no_jax_and_no_reference():
             "configs/tinyllama_1_1b.py", "obs/sink.py", "core/gmres.py",
             "core/adaptive.py", "core/implicit.py",
             "examples/stiff_robertson.py", "mem/model.py",
-            "mem/planner.py", "mem/offload.py"} <= names
+            "mem/planner.py", "mem/offload.py", "obs/registry.py",
+            "obs/trace.py", "obs/profile.py", "obs/trace_export.py",
+            "obs/baseline.py", "ft/inject.py", "ft/watchdog.py",
+            "ckpt/checkpoint.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

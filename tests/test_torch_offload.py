@@ -368,10 +368,21 @@ def test_effective_tier_walks_the_references_ladder(down):
 
 
 def test_fault_plan_and_obs_name_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        toff.make_store("spill", fault_plan=_StubPlan(()))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        toff.make_store("spill").bind_obs(object())
+    """Item 11's hooks run: a plan arms the spill store's sites, and a
+    bound recorder sees the store's traffic."""
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.obs import FlightRecorder
+    plan = FaultPlan([FaultSpec("spill.read", 0, "flake")])
+    st = toff.make_store("spill", fault_plan=plan, retry_backoff_s=0.0)
+    assert st.fault_plan is plan
+    rec = FlightRecorder()
+    st.bind_obs(rec)
+    x = torch.arange(6.0).reshape(2, 3)
+    st.write_batch(0, x)
+    assert torch.equal(st.prefetch(0, 2), x)
+    assert plan.fired_count("spill.read", "flake") == 1
+    assert [e.kind for e in rec.events()] == ["spill.write", "spill.retry",
+                                              "spill.read"]
 
 
 # ---------------------------------------------------------------------------
