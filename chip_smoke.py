@@ -173,6 +173,23 @@ Phases (any failure exits non-zero, before the last line is printed):
    TinyLlama-1.1B serving batch 8 with lane 0 poisoned at decode step 0:
    lane 0 errors, lanes 1-7 BITWISE the clean run, injected malformed and
    oversize requests refused and counted;
+18. ODE serving (``repro_torch.serve.ODEEngine``) at phase 3's width
+   and weights (dopri5, dt 0.1, 10 steps, unfused as the JAX engine runs
+   it), buckets (8, 64), segment 4: 72 requests (48 density, 16 score, 8
+   classify) through the device tier captured (6 graphs: warm-up ms,
+   capture ms, pool bytes) and eager, the spill and the disk tiers, every
+   result BITWISE the same on all four; again with 12 new requests first
+   and the rest reversed (other batch-mates and lanes; on the spill tier
+   its scores), BITWISE; the scores on the RAM/disk split with
+   ``serve.decode`` poisoning the first lane (it fails alone, its
+   batch-mates BITWISE); a request a kind through an eager bucket-1
+   program against its batched bits, and one evaluation of f and of the
+   trace at M = 1 against inside M = 64 (printed in ulps); the adaptive
+   engine on 16 points, captured, BITWISE its eager run on the first;
+   every census empty after each run; the spill engine's transfers a
+   solve independent of its lanes; requests per second for each kind
+   and bucket, and the spill and disk walls against the device tier's;
+   no ``fused_lincomb`` launch and no plain call (counted);
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
@@ -183,7 +200,8 @@ The kernels' launch counters are set to 0 just before each main path
 (phases 3-4, each of phase 12's two eager fused runs, phase 15's
 auto-planned classifier gradients and each of phase 16's counted
 gradients, phase 17's counted gradients, adaptive request and
-checkpointed training for ``fused_lincomb``, phase 6 and phase 17e's two
+checkpointed training, phase 18's engines (0 expected) for
+``fused_lincomb``, phase 6 and phase 17e's two
 serves for the flash kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
@@ -3267,6 +3285,307 @@ def serve_fault_phase(cfg, params, card, dev):
                 launches=counted[0], expected=counted[1])
 
 
+# ---------------------------------------------------------------------------
+# phase 18: ODE serving at POWER width
+# ---------------------------------------------------------------------------
+
+# the stream: 3 of 4 density and 1 of 4 score over ``pairs`` points, then
+# ``classify`` classifier requests; ``fresh`` new requests lead the second
+# pass; ``solo`` requests a kind go alone through an eager bucket-1
+# program (v); the split store keeps ``split_snaps`` slots in RAM
+SERVE_ODE = dict(buckets=(8, 64), segment=4, pairs=64, classify=8,
+                 fresh=12, solo=1, classes=10, split_snaps=80,
+                 adaptive_points=16, adaptive_eager=1, max_steps=512)
+SERVE_SPOOL = ROOT / "build" / "serve_spool"
+
+
+def ulps(a, b):
+    """Largest |a - b| in float32 units in the last place of b's largest
+    magnitude (a row's, for a 2-d b)."""
+    import numpy as np
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    if not a.size:
+        return 0.0
+    top = np.abs(b).max(axis=-1, keepdims=True) if b.ndim > 1 \
+        else np.abs(b).max()
+    return float(np.max(np.abs(a.astype(np.float64) - b)
+                        / np.spacing(top)))
+
+
+def ode_serving_phase(card, dev, theta, x):
+    """Phase 18: ``repro_torch.serve.ODEEngine`` at the width of phase 3
+    (its weights and points: ``cnf_vf``, dim 6, hidden (64, 64, 64),
+    dopri5, dt 0.1, 10 steps, unfused as the JAX engine runs it), buckets
+    (8, 64), segment 4.  One stream of 72 requests (48 density, 16 score,
+    8 classify) through the device tier captured (6 graphs, warmed up
+    first) and eager, the spill tier and the disk tier: every result
+    BITWISE the same on all four ((ii), (iii)); the stream again, 12 new
+    requests first and the rest reversed, through the captured engine and
+    (its scores) the spill engine: every request BITWISE its first result
+    (i); the scores on the RAM/disk split with ``serve.decode`` poisoning
+    the first lane: it fails alone, its batch-mates BITWISE ((ii), (iv));
+    a request a kind alone through an eager bucket-1 program against its
+    batched bits, and one evaluation of f and of the trace at M = 1
+    against inside M = 64 ((v), printed in ulps); the adaptive engine on
+    16 points, captured, BITWISE its eager run on the first.  Every
+    engine's census is empty after each run; the spill engine's
+    transfers a solve do not depend on its lanes; the engine's unfused
+    path launches no ``fused_lincomb`` and calls no plain version
+    (counted).  The eager batches are host-bound (tens of thousands of
+    small kernels a batch, whatever its lanes), so the phase's time goes
+    by batches, not requests."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core.cnf import exact_trace_vf
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models.ode_nets import cnf_vf
+    from repro_torch.obs import FlightRecorder, MetricsRegistry
+    from repro_torch.serve import BucketSpec, ODEEngine
+
+    cfg = SERVE_ODE
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    shutil.rmtree(SERVE_SPOOL, ignore_errors=True)
+    n_a = cfg["pairs"] + cfg["classify"]
+    pts = x[:n_a + cfg["fresh"]].cpu().numpy()
+    reqs = [("score" if i % 4 == 0 else "density", pts[i])
+            for i in range(cfg["pairs"])]
+    reqs += [("classify", pts[cfg["pairs"] + i])
+             for i in range(cfg["classify"])]
+    fresh = [("score" if i % 3 == 0 else "density", pts[n_a + i])
+             for i in range(cfg["fresh"])]
+    w = torch.randn(CNF["dim"], cfg["classes"],
+                    generator=torch.Generator().manual_seed(18)).to(dev)
+    common = dict(dim=CNF["dim"], dt=1.0 / CNF["n_steps"],
+                  n_steps=CNF["n_steps"], method=CNF["method"],
+                  offload_segment=cfg["segment"], head=lambda u: u @ w,
+                  device=dev)
+    engines = {}
+
+    def make(name, buckets=cfg["buckets"], **kw):
+        rec, reg = FlightRecorder(), MetricsRegistry()
+        eng = ODEEngine(cnf_vf, theta, buckets=BucketSpec(buckets), obs=rec,
+                        registry=reg, **common, **kw)
+        engines[name] = (eng, rec, reg)
+        return eng
+
+    def serve(name, stream, failing=()):
+        """The results of ``stream`` in order (None for a lane in
+        ``failing``, which must fail), the run's batches and its wall."""
+        eng, rec, _ = engines[name]
+        n0 = len(rec.events("serve.batch"))
+        tickets = [eng.submit(k, p) for k, p in stream]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        wall = time.perf_counter() - t0
+        out = []
+        for i, t in enumerate(tickets):
+            if i in failing:
+                try:
+                    t.result(0)
+                except RuntimeError as e:
+                    check("non-finite" in str(e), f"{name}: lane {i}: {e}")
+                    out.append(None)
+                    continue
+                fail(f"{name}: the poisoned request {i} did not fail")
+            out.append(np.asarray(t.result(0)))
+        census = eng.slot_census()
+        check(not any(census.values()),
+              f"{name}: slots left after the run: {census}")
+        return out, [e.data for e in rec.events("serve.batch")[n0:]], wall
+
+    def same(a, b, what):
+        bad = [i for i, (p, q) in enumerate(zip(a, b))
+               if p is not None and q is not None
+               and not np.array_equal(p, q)]
+        check(len(a) == len(b) and not bad,
+              f"{what}: {len(bad)} requests differ, first {bad[:3]}, "
+              f"largest {max((ulps(a[i], b[i]) for i in bad), default=0)} "
+              "ulps")
+
+    def rates(batches):
+        return {f"{b['req_kind']}/{b['bucket']}": dict(
+            lanes=b["lanes"], ms=b["wall_s"] * 1e3,
+            per_s=b["lanes"] / b["wall_s"]) for b in batches}
+
+    ops.reset_counts()
+    # -- the device tier, captured: 6 graphs warmed up and captured --------
+    t0 = time.perf_counter()
+    cap = make("device captured", offload=None)
+    check(cap.warmup() == len(ODEEngine.KINDS) * len(cfg["buckets"]),
+          "warmup built another number of programs")
+    warm_s = time.perf_counter() - t0
+    graphs = cap.graph_stats()
+    check(len(graphs) == 6, f"{len(graphs)} captured graphs, not 6")
+    for key, (wm, cm, pool) in sorted(graphs.items()):
+        print(f"phase 18 graph {key}: warm-up {wm:.1f} ms, capture "
+              f"{cm:.1f} ms, pool {pool} B {card}", flush=True)
+    # -- pass A through the four engines -------------------------------------
+    res = {}
+    tiers = {"device captured": None,
+             "device eager": dict(offload=None, capture=False),
+             "spill": dict(offload="spill",
+                           spool_dir=str(SERVE_SPOOL / "spill")),
+             "disk": dict(offload="disk",
+                          spool_dir=str(SERVE_SPOOL / "disk"))}
+    for name, kw in tiers.items():
+        if kw is not None:
+            make(name, **kw)
+        res[name] = serve(name, reqs)
+    ref = res["device eager"][0]
+    same(res["device captured"][0], ref, "(iii) captured vs eager")
+    same(res["spill"][0], ref, "(ii) spill vs the device tier")
+    same(res["disk"][0], ref, "(ii) disk vs the device tier")
+    for r, (k, _) in zip(ref, reqs):
+        check(np.all(np.isfinite(r)), f"a non-finite {k} result")
+    # -- pass B: new requests first, the rest reversed: other mates, lanes;
+    # on the spill tier the scores alone (the one kind whose checkpoints
+    # go through the lane-keyed store) --------------------------------------
+    stream_b = fresh + reqs[::-1]
+    is_score = [k == "score" for k, _ in stream_b]
+    res_b = {"device captured": serve("device captured", stream_b),
+             "spill": serve("spill", [r for r, sc in zip(stream_b, is_score)
+                                      if sc])}
+    same(res_b["device captured"][0][cfg["fresh"]:][::-1], ref,
+         "(i) captured: other batch-mates and lanes")
+    scores = [(k, p) for k, p in reqs if k == "score"]
+    ref_scores = [r for r, (k, _) in zip(ref, reqs) if k == "score"]
+    n_fresh = sum(is_score[:cfg["fresh"]])
+    same(res_b["spill"][0][n_fresh:][::-1], ref_scores,
+         "(i) spill: other batch-mates and lanes")
+    same(res_b["spill"][0], [r for r, sc in zip(res_b["device captured"][0],
+                                                is_score) if sc],
+         "(ii) pass B, spill vs captured")
+    # -- the RAM/disk split, serve.decode poisoning its first lane (iv) ------
+    make("split, poisoned", offload="spill", snaps_in_ram=cfg["split_snaps"],
+         spool_dir=str(SERVE_SPOOL / "split"),
+         fault_plan=FaultPlan([FaultSpec("serve.decode", 0, "nan")]))
+    res["split, poisoned"] = serve("split, poisoned", scores, failing=(0,))
+    same(res["split, poisoned"][0], ref_scores,
+         "(ii) split vs the device tier, (iv) the poisoned lane's mates")
+    split_disk = sum(st.stats["disk_write_bytes"] for st
+                     in engines["split, poisoned"][0]._stores.values())
+    check(split_disk > 0, "the split store wrote nothing to disk")
+    counts = {k: engines["split, poisoned"][2].counter(k)
+              for k in ("serve.errors", "serve.completed")}
+    check(counts == {"serve.errors": 1,
+                     "serve.completed": len(scores) - 1},
+          f"poisoned run's registry {counts}")
+    # -- (v): a request a kind alone, eager, and f's rows at M = 1 -----------
+    make("device eager, bucket 1", buckets=(1,), offload=None, capture=False)
+    solo_idx = {k: [i for i, (kk, _) in enumerate(reqs) if kk == k]
+                [:cfg["solo"]] for k in ODEEngine.KINDS}
+    v_ulps, v_bits = {}, True
+    for kind, idx in solo_idx.items():
+        out, _, _ = serve("device eager, bucket 1", [reqs[i] for i in idx])
+        v_ulps[kind] = max(ulps(o, ref[i]) for o, i in zip(out, idx))
+        v_bits &= all(np.array_equal(o, ref[i]) for o, i in zip(out, idx))
+    xb = torch.from_numpy(pts[:cfg["buckets"][-1]]).to(dev)
+    aug = exact_trace_vf(cnf_vf, CNF["dim"])
+    with torch.no_grad():
+        fb = cnf_vf(xb, theta, 0.0)
+        f1 = torch.cat([cnf_vf(xb[i:i + 1].clone(), theta, 0.0)
+                        for i in range(len(xb))])
+        z0 = torch.zeros(len(xb), device=dev)
+        tb = aug((xb, z0), theta, 0.0)[1]
+        t1 = torch.cat([aug((xb[i:i + 1].clone(), z0[i:i + 1]), theta,
+                            0.0)[1] for i in range(len(xb))])
+    f_rows = int((fb != f1).any(-1).sum())
+    tr_rows = int((tb != t1).sum())
+    f_ulps, tr_ulps = ulps(f1.cpu(), fb.cpu()), ulps(t1.cpu(), tb.cpu())
+    print(f"phase 18 (v): one evaluation of f at M = 1 against inside M = "
+          f"{len(xb)}: {f_rows} of {len(xb)} rows differ, largest "
+          f"{f_ulps:.1f} ulps of the row's largest value; of the exact "
+          f"trace: {tr_rows} rows, {tr_ulps:.1f} ulps of the largest.  "
+          f"{cfg['solo']} request(s) a kind alone (eager, bucket 1) against "
+          f"their batched bits: {'BITWISE' if v_bits else 'not bitwise'}, "
+          f"largest difference in ulps {v_ulps} {card}", flush=True)
+    # -- the spill engine's transfers a solve against its lanes -------------
+    spill_scores = [b for b in res["spill"][1] + res_b["spill"][1]
+                    if b["req_kind"] == "score"]
+    check(len({b["callbacks"] for b in spill_scores}) == 1
+          and len({b["lanes"] for b in spill_scores}) == 2,
+          f"spill score batches {spill_scores}")
+    per_req = sorted((b["lanes"], b["callbacks"] / b["lanes"])
+                     for b in spill_scores)
+    check(per_req[0][1] > per_req[1][1],
+          f"transfers a request did not fall with occupancy: {per_req}")
+    print(f"phase 18 spill transfers a score solve: "
+          f"{spill_scores[0]['callbacks']} at {per_req[0][0]} and at "
+          f"{per_req[1][0]} lanes; a request {per_req[0][1]:.4f} -> "
+          f"{per_req[1][1]:.4f}", flush=True)
+    # -- the adaptive path, captured against its own eager run --------------
+    ada_kw = dict(offload="spill", adaptive=True, max_steps=cfg["max_steps"])
+    ada_pts = [pts[i] for i in range(cfg["adaptive_points"])]
+    ada_reqs = [(k, p) for k in ("density", "score") for p in ada_pts]
+    t0 = time.perf_counter()
+    make("adaptive captured", **ada_kw).warmup(kinds=("density", "score"))
+    ada_warm_s = time.perf_counter() - t0
+    res["adaptive captured"] = serve("adaptive captured", ada_reqs)
+    n_e = cfg["adaptive_eager"]
+    ada_eager = [(k, p) for k in ("density", "score") for p in ada_pts[:n_e]]
+    make("adaptive eager", capture=False, **ada_kw)
+    res["adaptive eager"] = serve("adaptive eager", ada_eager)
+    n_p = cfg["adaptive_points"]
+    same(res["adaptive captured"][0][:n_e]
+         + res["adaptive captured"][0][n_p:n_p + n_e],
+         res["adaptive eager"][0], "adaptive captured vs eager")
+    ada_graphs = {k: v for k, v in engines["adaptive captured"][0]
+                  .graph_stats().items()}
+    # every engine of the phase, the adaptive ones included, has now run
+    launches, plain = ops.launches, ops.plain_calls
+    check(launches == 0 and plain == 0,
+          f"the engine's unfused path: {launches} fused_lincomb launches "
+          f"and {plain} plain calls, expected 0 and 0")
+    # -- rates ---------------------------------------------------------------
+    table = {name: rates(b) for name, (_, b, _) in res.items()}
+    table_b = {f"{name}, pass B": rates(b) for name, (_, b, _)
+               in res_b.items()}
+    for name, rows in {**table, **table_b}.items():
+        for key, r in sorted(rows.items()):
+            print(f"phase 18 {name} {key}: {r['lanes']} requests in "
+                  f"{r['ms']:.1f} ms, {r['per_s']:.1f} requests/s {card}")
+    vs = {}
+    for tier in ("spill", "disk"):
+        for key, r in table[tier].items():
+            vs[f"{tier} {key}"] = dict(
+                vs_eager=r["ms"] / table["device eager"][key]["ms"],
+                vs_captured=r["ms"] / table["device captured"][key]["ms"])
+    print("phase 18 spill and disk wall / device tier (eager, captured): "
+          + ", ".join(f"{k} {v['vs_eager']:.3f}, {v['vs_captured']:.3f}"
+                      for k, v in sorted(vs.items())), flush=True)
+    print(f"phase 18 ODE serving: {len(reqs)} requests on every tier "
+          f"BITWISE the "
+          f"device tier's and captured == eager; reversed with new mates "
+          f"BITWISE; the poisoned lane failed alone ({counts}); split "
+          f"{split_disk} B to disk; adaptive {n_p} points captured "
+          f"(warm-up {ada_warm_s:.1f} s), BITWISE eager on {n_e}; device "
+          f"warm-up and capture {warm_s:.1f} s; fused_lincomb launches "
+          f"{launches} (expected 0) {card}", flush=True)
+    torch.use_deterministic_algorithms(det)
+    for eng, _, _ in engines.values():
+        eng.close()
+    shutil.rmtree(SERVE_SPOOL, ignore_errors=True)
+    return dict(launches=launches, expected=0, plain_calls=plain,
+                graphs={k: dict(zip(("warmup_ms", "capture_ms",
+                                     "pool_bytes"), v))
+                        for k, v in graphs.items()},
+                adaptive_graphs={k: dict(zip(("warmup_ms", "capture_ms",
+                                              "pool_bytes"), v))
+                                 for k, v in ada_graphs.items()},
+                warmup_s=warm_s, adaptive_warmup_s=ada_warm_s,
+                rates=table, rates_pass_b=table_b, tier_vs_device=vs,
+                v_bitwise=v_bits, v_ulps=v_ulps, f_rows_differing=f_rows,
+                f_row_ulps=f_ulps, trace_rows_differing=tr_rows,
+                trace_row_ulps=tr_ulps, split_disk_bytes=split_disk,
+                spill_transfers_per_request=per_req)
+
+
 def gc_collect():
     import gc
     import torch
@@ -3570,6 +3889,10 @@ def main():
     faults["checkpoint"] = checkpoint_phase(card, dev, cls_params, batches)
     lap("17 recorder, faults, checkpoints")
 
+    # -- phase 18: ODE serving at POWER width, counted ------------------------
+    serving = ode_serving_phase(card, dev, cnf_theta, x)
+    lap("18 ODE serving")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -3580,11 +3903,11 @@ def main():
         "launches": total_launches + adaptive_point["launches"]
         + adaptive["launches"] + planner["launches"]
         + offloaded["launches"] + faults["launches"]
-        + faults["checkpoint"]["launches"],
+        + faults["checkpoint"]["launches"] + serving["launches"],
         "expected_launches": exp_cnf + exp_cls + adaptive_point["expected"]
         + adaptive["expected"] + planner["expected"]
         + offloaded["expected"] + faults["expected"]
-        + faults["checkpoint"]["expected"],
+        + faults["checkpoint"]["expected"] + serving["expected"],
         "launches_cnf": cnf_launches,
         "launches_classifier": cls_launches,
         "launches_adaptive_request": adaptive_point["launches"],
@@ -3599,6 +3922,8 @@ def main():
         "expected_launches_recorder_faults": faults["expected"],
         "launches_checkpoint": faults["checkpoint"]["launches"],
         "expected_launches_checkpoint": faults["checkpoint"]["expected"],
+        "launches_ode_serving": serving["launches"],
+        "expected_launches_ode_serving": serving["expected"],
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -3620,6 +3945,7 @@ def main():
         "memory_planner": planner,
         "offload": offloaded,
         "recorder_faults_checkpoints": faults,
+        "ode_serving": serving,
         "card": smi,
     }, {
         "name": "flash_attention",

@@ -694,8 +694,12 @@ class _Solver:
                                       pytree.tree_leaves(k)):
                         buf[i, j].copy_(x)
                 u = u_next
+            # a state leaf's lane axis (its leading one) sits first in a
+            # slot's state and second in its stacked stages
+            n_leaves = len(pytree.tree_leaves(u))
             event = store.write_batch(
-                base, tree_map(lambda b: b[:m], staging))
+                base, tree_map(lambda b: b[:m], staging),
+                lane_axes=(0,) * n_leaves + (1,) * n_leaves)
         return u, store
 
     def _pnode_spill_bwd(self, store, theta, lam, mu):

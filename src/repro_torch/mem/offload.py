@@ -98,11 +98,25 @@ payload; ``dispatch_cb`` the issued prefetches and ``prefetch_hit_cb`` the
 prefetches they served.  ``store.copies`` counts the ``copy_`` calls a
 store issued each way on the card (one a leaf a transfer).
 
+Per-request lane keys (``ODEEngine``'s contract, the JAX package's):
+``store.lane_keys = (rid_0, ..., rid_{B-1})``, one entry per lane of the
+solve's batch (``None`` for a padding lane), splits each segment-batched
+write into per-lane rows keyed ``(rid_b, base + i)``: padding lanes store
+nothing, ``prefetch`` puts the block back together with zeros for them,
+``request_slots(rid)`` counts one request's live slots and
+``free_request(rid)`` drops them (a segment file goes with its last live
+slot).  The lane axis of a checkpoint leaf is the leading axis of the
+state leaf it holds: ``write_batch(lane_axes=)`` says where it sits in
+each slot's leaf (0 by default; the pnode sweep's stacked stages carry it
+second).  The keys are read when a transfer runs, once a transfer (the
+landing of a card's batch uses the keys of its issue), never when a
+program is built, so one program serves every batch composition.  With
+``lane_keys = None`` every path moves the bytes and counts what it did
+before.
+
 Not here, as the JAX package's offload module has them: the token
 threading, ``pure_callback`` and its payload cap, ``batch_scale`` and the
-memory-kind query (the host is in control between kernels here); and the
-lane keys of ``ODEEngine`` (``lane_keys``, ``free_request``,
-``request_slots``: ROADMAP Queue 1 item 12).
+memory-kind query (the host is in control between kernels here).
 """
 from __future__ import annotations
 
@@ -381,6 +395,23 @@ def _slot_salt(slot) -> int:
     return zlib.crc32(repr(slot).encode("utf-8"))
 
 
+def _lane_take(row: np.ndarray, shape, dtype: torch.dtype, axis: int,
+               b: int) -> np.ndarray:
+    """Lane ``b``'s bytes of one slot's leaf (``row``: the raw bytes of a
+    ``shape`` tensor): its slice at index ``b`` of ``axis``."""
+    v = row.reshape(tuple(shape) + (dtype.itemsize,))
+    return np.ascontiguousarray(v[(slice(None),) * axis + (b,)]).reshape(-1)
+
+
+def _lane_put(dst: np.ndarray, shape, dtype: torch.dtype, axis: int, b: int,
+              row: np.ndarray) -> None:
+    """Write lane ``b``'s bytes ``row`` into ``dst``, the raw bytes of one
+    slot's ``shape`` leaf (the inverse of ``_lane_take``)."""
+    v = dst.reshape(tuple(shape) + (dtype.itemsize,))
+    sub = v[(slice(None),) * axis + (b,)]
+    sub[...] = row.reshape(sub.shape)
+
+
 def _cleanup_disk(paths: List[str], root: Optional[str], owned: bool) -> None:
     """``weakref.finalize`` target: delete a store's segment files and, if
     the store made its own directory, the directory."""
@@ -579,11 +610,17 @@ class SpillStore(CheckpointStore):
         self.swept_files = 0
         self._io_lock = threading.RLock()
         self._exec = None
-        self._inflight: Dict[int, Tuple[Any, Any, int]] = {}
+        #: issued gathers by base: (future, host buffer, seg, lanes)
+        self._inflight: Dict[int, Tuple[Any, Any, int, Any]] = {}
         #: device-to-host batches in flight: (slots, pinned buffer, region
-        #: offsets, per-slot leaf metas, event, device)
+        #: offsets, per-slot leaf metas, event, device, fault spec, bytes,
+        #: lane keys of the transfer)
         self._pending: List[tuple] = []
         self._dev = torch.device("cpu")
+        #: per-request lane keys (module docstring): one request id a lane
+        #: of the solve's batch, None for a padding lane; read when a
+        #: transfer runs, so set them between solves to re-key a program
+        self.lane_keys: Optional[Tuple[Any, ...]] = None
 
     # -- disk backend ----------------------------------------------------------
     def set_disk_dir(self, path: str) -> None:
@@ -721,6 +758,84 @@ class SpillStore(CheckpointStore):
             return {"ram": len(self._host), "disk": len(self._disk),
                     "disk_files": len(self._file_slots)}
 
+    # -- lane keys ------------------------------------------------------------
+    @staticmethod
+    def _check_lanes(metas, axes, keys) -> None:
+        """Every leaf must carry the lane axis, with one lane a key: anything
+        else is a serving engine's wiring fault (the JAX package's
+        errors)."""
+        for (shape, _), ax in zip(metas, axes):
+            if len(shape) <= ax:
+                raise ValueError(
+                    f"lane_keys requires exactly one mapped batch axis on "
+                    f"every checkpoint leaf, got a slot leaf of shape "
+                    f"{tuple(shape)} with no axis {ax} (solve the request "
+                    "batch as the leading axis of the state)")
+            if shape[ax] != len(keys):
+                raise ValueError(
+                    f"lane_keys has {len(keys)} entries but the mapped batch "
+                    f"axis has {shape[ax]} lanes")
+
+    def _lanes(self, metas, axes):
+        """The lane keys as this transfer sees them (one snapshot a
+        transfer), checked against its leaves, with their axes; None
+        without keys."""
+        keys = self.lane_keys
+        if keys is None:
+            return None
+        keys = tuple(keys)
+        self._check_lanes(metas, axes, keys)
+        return keys, tuple(axes)
+
+    def _request_keys(self, request_id) -> List[Any]:
+        # under _io_lock
+        return [k for k in set(self._host) | set(self._disk)
+                if isinstance(k, tuple) and k[0] == request_id]
+
+    def request_slots(self, request_id) -> int:
+        """Live lane-keyed slots of one request (both media)."""
+        self.sync()
+        with self._io_lock:
+            return len(self._request_keys(request_id))
+
+    def free_request(self, request_id) -> int:
+        """Drop every lane-keyed slot of a departed request, in both media
+        (a segment file goes with its last live slot); its batch-mates'
+        slots stay.  Called between solves, never while one that still
+        reads the slots runs.  Returns the number of slots dropped."""
+        self.sync()
+        with host_annotation("spill/free_request"):
+            self._settle()
+            with self._io_lock:
+                victims = self._request_keys(request_id)
+                for k in victims:
+                    self._drop_slot(k)
+                    self._sums.pop(k, None)
+            if victims:
+                self._tally_counter("free_cb")
+            self._event("spill.free_request", request=request_id,
+                        slots=len(victims))
+        return len(victims)
+
+    def clear(self) -> None:
+        """Land pending writes and drop every slot now (segment files
+        included); the prefetch worker keeps running."""
+        self.sync()
+        self._settle()
+        self._inflight.clear()
+        with self._io_lock:
+            for slot in list(self._host) + list(self._disk):
+                self._drop_slot(slot)
+            self._sums.clear()
+
+    def close(self) -> None:
+        """``clear``, and stop the prefetch worker now rather than at
+        garbage collection.  The store stays usable."""
+        self.clear()
+        if self._exec is not None:
+            self._exec.shutdown(wait=True)
+            self._exec = None
+
     # -- counters --------------------------------------------------------------
     def _tally_counter(self, key: str, n: int = 1) -> None:
         with _STATS_LOCK:
@@ -778,12 +893,13 @@ class SpillStore(CheckpointStore):
                     torch.device("cpu"))
 
     def _send(self, slots: List[Any], leaves: List[torch.Tensor],
-              metas) -> Optional["torch.cuda.Event"]:
+              metas, lanes=None) -> Optional["torch.cuda.Event"]:
         """Copy ``len(slots)`` slots whose leaves are stacked on axis 0 to
         the host; on the card as one pending batch (landed later), on the
         CPU at once.  The transfer ticks ``spill.write`` here, in issue
-        order; its fault applies where it lands.  Returns the card's copy
-        event."""
+        order; its fault applies where it lands, and so does the lane split
+        of ``lanes`` (the keys of this transfer and their axes).  Returns
+        the card's copy event."""
         m = len(slots)
         dev = self._device(leaves)
         spec = (self.fault_plan.tick("spill.write")
@@ -792,7 +908,7 @@ class SpillStore(CheckpointStore):
         if dev.type != "cuda":
             views = [_bytes_of(x).reshape(m, -1) for x in leaves]
             self._land(slots, [[v[i] for v in views] for i in range(m)],
-                       spec, nbytes)
+                       spec, nbytes, lanes, metas)
             return None
         _no_capture()
         self.sync()  # one batch in flight a store: its buffer is freed
@@ -811,14 +927,15 @@ class SpillStore(CheckpointStore):
                 self.copies["d2h"] += 1
             ev = torch.cuda.Event()
             ev.record(stream)
-        self._pending.append((slots, buf, offs, metas, ev, dev, spec, nbytes))
+        self._pending.append((slots, buf, offs, metas, ev, dev, spec, nbytes,
+                              lanes))
         return ev
 
     def sync(self) -> None:
         """Land every pending device-to-host batch: wait for its copy, then
         move its bytes into the RAM dict or a disk file."""
         while self._pending:
-            slots, buf, offs, metas, ev, dev, spec, nbytes = \
+            slots, buf, offs, metas, ev, dev, spec, nbytes, lanes = \
                 self._pending.pop(0)
             ev.synchronize()  # the host reads the buffer only after this
             host = buf.numpy()
@@ -829,22 +946,34 @@ class SpillStore(CheckpointStore):
                     rb = _nbytes(shape, dtype)
                     row.append(host[off + i * rb:off + (i + 1) * rb])
                 rows.append(row)
-            self._land(slots, rows, spec, nbytes)
+            self._land(slots, rows, spec, nbytes, lanes, metas)
             _pool(dev).give(buf)
 
     def _settle(self) -> None:
         """Wait for the issued gathers: a write or a free after an issue
         must not change what that issue reads."""
-        for fut, _, _ in list(self._inflight.values()):
+        for fut, *_ in list(self._inflight.values()):
             fut.exception()
 
-    def _land(self, slots, rows, spec=None, nbytes: int = 0) -> None:
-        """Copy each slot's leaf bytes off their buffer, checksum them when
-        integrity is on, apply the transfer's ``spill.write`` fault (the
-        checksum is over the clean bytes: corruption at rest), and store
-        them."""
+    def _land(self, slots, rows, spec=None, nbytes: int = 0, lanes=None,
+              metas=None) -> None:
+        """Copy each slot's leaf bytes off their buffer (split into per-lane
+        rows keyed ``(lane key, slot)`` when ``lanes`` is given, padding
+        lanes dropped), checksum them when integrity is on, apply the
+        transfer's ``spill.write`` fault (the checksum is over the clean
+        bytes: corruption at rest), and store them."""
         with host_annotation("spill/write"):
             self._settle()
+            base, n = (slots[0] if slots else -1), len(slots)
+            if lanes is not None:
+                keys, axes = lanes
+                keyed = [((rk, slot), [_lane_take(a, shape, dtype, ax, b)
+                                       for a, (shape, dtype), ax
+                                       in zip(row, metas, axes)])
+                         for b, rk in enumerate(keys) if rk is not None
+                         for slot, row in zip(slots, rows)]
+                slots = [k for k, _ in keyed]
+                rows = [r for _, r in keyed]
             out = {}
             for slot, row in zip(slots, rows):
                 arrs = [np.array(a, dtype=np.uint8, copy=True) for a in row]
@@ -858,28 +987,44 @@ class SpillStore(CheckpointStore):
                         arrs, salt=_slot_salt(slot))
                 out[slot] = arrs
             medium = self._store_rows(out)
-            self._event("spill.write", base=slots[0] if slots else -1,
-                        slots=len(slots), bytes=nbytes, medium=medium)
+            self._event("spill.write", base=base, slots=n, bytes=nbytes,
+                        medium=medium)
 
-    def _gather(self, host: np.ndarray, offs, metas, base: int, seg: int):
+    def _gather(self, host: np.ndarray, offs, metas, base: int, seg: int,
+                lanes=None):
         """Fill a host batch buffer with slots ``[base, base+seg)`` (zeros
-        for a missing slot).  Returns (presence a slot, disk bytes, the
-        slots' leaves); raw I/O only, so the prefetch worker can run it."""
-        present, dbytes, got = [], 0, []
+        for a missing slot), with ``lanes`` from each lane's keyed rows
+        (zeros for a padding lane).  Returns (disk bytes, [(slot key,
+        leaves or None)] of the slots that should be there); raw I/O only,
+        so the prefetch worker can run it."""
+        dbytes, got = 0, []
         with self._io_lock:
             for i in range(seg):
-                leaves, db = self._slot_read_any(base + i)
-                present.append(leaves is not None)
-                got.append(leaves)
-                dbytes += db
-                for k, (off, (shape, dtype)) in enumerate(zip(offs, metas)):
-                    rb = _nbytes(shape, dtype)
-                    dst = host[off + i * rb:off + (i + 1) * rb]
+                dsts = [(host[off + i * _nbytes(shape, dtype):
+                              off + (i + 1) * _nbytes(shape, dtype)],
+                         shape, dtype) for off, (shape, dtype)
+                        in zip(offs, metas)]
+                if lanes is None:
+                    leaves, db = self._slot_read_any(base + i)
+                    got.append((base + i, leaves))
+                    dbytes += db
+                    for k, (dst, _, _) in enumerate(dsts):
+                        dst[:] = 0 if leaves is None else leaves[k]
+                    continue
+                keys, axes = lanes
+                for dst, _, _ in dsts:
+                    dst[:] = 0
+                for b, rk in enumerate(keys):
+                    if rk is None:  # padding lane: nothing stored
+                        continue
+                    leaves, db = self._slot_read_any((rk, base + i))
+                    got.append(((rk, base + i), leaves))
+                    dbytes += db
                     if leaves is None:
-                        dst[:] = 0
-                    else:
-                        dst[:] = leaves[k]
-        return present, dbytes, got
+                        continue
+                    for (dst, shape, dtype), ax, a in zip(dsts, axes, leaves):
+                        _lane_put(dst, shape, dtype, ax, b, a)
+        return dbytes, got
 
     def _host_buffer(self, dev: torch.device, nbytes: int):
         """A host batch buffer: pinned from the pool on the card, a fresh
@@ -988,17 +1133,22 @@ class SpillStore(CheckpointStore):
                         medium="ram")
 
     # -- segment-batched ---------------------------------------------------------
-    def write_batch(self, base: int, tree: PyTree):
+    def write_batch(self, base: int, tree: PyTree, lane_axes=None):
         """Store slots ``[base, base+seg)`` whose leaves are stacked on axis
-        0, as one transfer.  Returns the copy's event on the card (the
-        caller makes the compute stream wait on it before it overwrites the
-        source), None on the CPU."""
+        0, as one transfer.  ``lane_axes`` gives each leaf's lane axis
+        within a slot (0 for every leaf by default), which the lane keys
+        split on.  Returns the copy's event on the card (the caller makes
+        the compute stream wait on it before it overwrites the source),
+        None on the CPU."""
         leaves, spec = pytree.tree_flatten(tree)
-        self._meta["idx"] = (spec, self._metas(leaves, strip=True))
+        metas = self._metas(leaves, strip=True)
+        axes = (tuple(int(a) for a in lane_axes) if lane_axes is not None
+                else (0,) * len(leaves))
+        self._meta["idx"] = (spec, metas, axes)
         seg = int(leaves[0].shape[0]) if leaves else 0
         self._dev = self._device(leaves)
-        ev = self._send([base + i for i in range(seg)], leaves,
-                        self._meta["idx"][1])
+        ev = self._send([base + i for i in range(seg)], leaves, metas,
+                        self._lanes(metas, axes))
         self._tally("write", slots=seg,
                     nbytes=sum(x.numel() * x.element_size() for x in leaves))
         return ev
@@ -1010,7 +1160,8 @@ class SpillStore(CheckpointStore):
         if "idx" not in self._meta:
             return  # nothing written yet: the prefetch reads cold
         self.sync()  # the worker reads landed slots only
-        _, metas = self._meta["idx"]
+        _, metas, axes = self._meta["idx"]
+        lanes = self._lanes(metas, axes)
         offs, total = _regions(metas, seg)
         buf = self._host_buffer(self._dev, total)
         host = buf.numpy() if torch.is_tensor(buf) else buf
@@ -1020,8 +1171,9 @@ class SpillStore(CheckpointStore):
                 max_workers=1,
                 thread_name_prefix=f"spill-prefetch-{self.store_id}")
             weakref.finalize(self, _shutdown_exec, self._exec)
-        fut = self._exec.submit(self._gather, host, offs, metas, base, seg)
-        self._inflight[base] = (fut, buf, seg)
+        fut = self._exec.submit(self._gather, host, offs, metas, base, seg,
+                                lanes)
+        self._inflight[base] = (fut, buf, seg, lanes)
         self._tally_counter("dispatch_cb")
         self._event("spill.dispatch", base=base, slots=seg)
 
@@ -1037,30 +1189,31 @@ class SpillStore(CheckpointStore):
                 f"spill store: prefetch at base {base} still failing after "
                 f"{self.max_retries} retries and this path has no "
                 "recompute fallback")
-        spec, metas = self._meta["idx"]
+        spec, metas, axes = self._meta["idx"]
+        lanes = self._lanes(metas, axes)
         offs, total = _regions(metas, seg)
         hit = None
         staged = self._inflight.pop(base, None)
         if staged is not None:
-            fut, buf, n = staged
-            present, dbytes, got = fut.result()
-            if n == seg:
-                hit = (buf, present, dbytes, got)
+            fut, buf, n, issued = staged
+            dbytes, got = fut.result()
+            if n == seg and issued == lanes:
+                hit = (buf, dbytes, got)
         if hit is None:
             buf = self._host_buffer(self._dev, total)
             host = buf.numpy() if torch.is_tensor(buf) else buf
-            present, dbytes, got = self._gather(host, offs, metas, base, seg)
+            dbytes, got = self._gather(host, offs, metas, base, seg, lanes)
         else:
-            buf, present, dbytes, got = hit
+            buf, dbytes, got = hit
             self._tally_counter("prefetch_hit_cb")
         if not ok:  # flaked past every retry: the checked caller recomputes
             (buf if torch.is_tensor(buf) else torch.from_numpy(buf)).zero_()
         elif checked:
-            for i in range(seg):
-                if not self._leaves_intact(base + i, got[i]):
+            for slot, leaves in got:
+                if not self._leaves_intact(slot, leaves):
                     ok = False
                     self._tally_counter("integrity_fail")
-                    self._event("spill.integrity", slot=base + i, base=base)
+                    self._event("spill.integrity", slot=slot, base=base)
         tensors = self._receive(buf, offs, metas, seg, self._dev, out)
         nbytes = seg * sum(_nbytes(s, d) for s, d in metas)
         self._tally("read", slots=seg, nbytes=nbytes, disk_bytes=dbytes)

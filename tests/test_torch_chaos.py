@@ -15,6 +15,7 @@ fault-free gradient, a restored checkpoint continues training as if
 uninterrupted, and the unpoisoned lanes of a served batch equal the clean
 run.
 """
+import threading
 import time
 from pathlib import Path
 
@@ -274,6 +275,12 @@ def _w_f(lib):
     return f
 
 
+def _w_problem():
+    """``_w_f``'s initial state and weights, from seed 3."""
+    rs = np.random.RandomState(3)
+    return rs.randn(6), {"W": 0.6 * rs.randn(6, 6), "b": 0.1 * rs.randn(6)}
+
+
 def _steps(rec):
     """The attempt log as (attempt, accept) pairs and float columns."""
     steps = rec.adaptive_steps()
@@ -287,8 +294,7 @@ def _adaptive_fault_runs(tol):
     poisoned, at rtol = atol = ``tol``: their final states and recorders,
     after the checks that hold at every tolerance (the counts and the
     attempt/accept sequence exactly)."""
-    rs = np.random.RandomState(3)
-    u0, th = rs.randn(6), {"W": 0.6 * rs.randn(6, 6), "b": 0.1 * rs.randn(6)}
+    u0, th = _w_problem()
     tp, jp = _plans(ADAPTIVE_FAULT)
     tr, jr = FlightRecorder(), JRecorder()
     kw = dict(t0=0.0, t1=2.0, rtol=tol, atol=tol)
@@ -328,6 +334,28 @@ def test_adaptive_fault_run_matches_the_reference():
     np.testing.assert_allclose(t_cols["err_norm"], j_cols["err_norm"],
                                rtol=SEQ_RTOL, atol=SEQ_RTOL)
     np.testing.assert_allclose(uf.numpy(), np.asarray(juf), rtol=1e-5)
+
+
+def test_adaptive_fault_drift_starts_in_f_at_the_last_ulps():
+    """Where the fault run's drift at 1e-7 starts: ``_w_f``'s first
+    evaluation differs between the packages only in its last ulps (their
+    matvec and tanh round differently; at most 8 ulps an element held,
+    4 measured), and at attempt 0, with t and h still bitwise equal, the
+    embedded error estimate's cancellation turns that into the first
+    error norm that differs, by at most 1e-6 relative (2.2e-8 measured)."""
+    u0, th = _w_problem()
+    tf = _w_f(torch)(torch.tensor(u0),
+                     {k: torch.tensor(v) for k, v in th.items()},
+                     torch.tensor(0.0, dtype=torch.float64)).numpy()
+    jf = np.asarray(_w_f(jnp)(jnp.asarray(u0),
+                              {k: jnp.asarray(v) for k, v in th.items()},
+                              jnp.asarray(0.0)))
+    assert np.all(np.abs(tf - jf) <= 8 * np.spacing(np.abs(jf)))
+    _, _, t_cols, j_cols = _adaptive_fault_runs(1e-7)
+    assert t_cols["t"][0] == j_cols["t"][0]
+    assert t_cols["h"][0] == j_cols["h"][0]
+    np.testing.assert_allclose(t_cols["err_norm"][0], j_cols["err_norm"][0],
+                               rtol=1e-6, atol=0)
 
 
 def test_adaptive_persistent_nan_hits_the_attempt_cap():
@@ -509,20 +537,29 @@ def test_straggler_detector_and_remesh_plan_match_the_reference():
 
 
 def test_heartbeat_and_supervisor_fire_as_the_reference():
+    """A missed beat fires the watchdog once a stall, however long the
+    stall lasts; a supervised step that outlasts the heartbeat raises
+    naming its step.  Each stall is waited for on an event (30 s at most),
+    not slept for, so a loaded machine that runs the watchdog thread late
+    cannot miss it; the stall is then held for three more timeouts (about
+    60 polls), which can only expose a second firing."""
+    timeout_s = 0.2
     for mod in (t_wd, j_wd):
-        fired = []
-        hb = mod.Heartbeat(timeout_s=0.05, on_stall=fired.append,
-                           poll_s=0.01).start()
-        time.sleep(0.2)
+        fired, stalled = [], threading.Event()
+        hb = mod.Heartbeat(timeout_s=timeout_s, poll_s=0.01,
+                           on_stall=lambda age: (fired.append(age),
+                                                 stalled.set())).start()
+        assert stalled.wait(30)
+        time.sleep(3 * timeout_s)
         hb.beat()
         hb.stop()
         assert hb.stall_count == 1 and len(fired) == 1
-        sup = mod.TrainSupervisor(heartbeat_timeout_s=0.1)
+        sup = mod.TrainSupervisor(heartbeat_timeout_s=1.0)
         sup.heartbeat.poll_s = 0.02
         with sup:
             sup.step(lambda: None, 0)
             with pytest.raises(TimeoutError, match="during step 1"):
-                sup.step(lambda: time.sleep(0.5), 1)
+                sup.step(lambda: sup.stall_event.wait(30), 1)
 
 
 # ---------------------------------------------------------------------------

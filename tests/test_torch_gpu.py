@@ -22,10 +22,12 @@ Dopri5 (``fused_lincomb``'s scaled form at the adaptive CNF's leaf
 shapes, the adaptive CNF request fused == unfused and captured == eager
 bitwise, with the expected launches) and the implicit theta-method (the
 three policies bitwise equal), each against the port's CPU run in fp64;
-and the offload tiers (every tier's gradient bitwise its device tier's
+the offload tiers (every tier's gradient bitwise its device tier's
 with its copies made on the card, the spill peak below the device
 tier's, the planner's spill fallback, the adaptive ring and the eager
-implicit route on spill/disk/host).
+implicit route on spill/disk/host); and ``ODEEngine`` (captured == eager
+on the device tier and the adaptive path, spill and disk == the device
+tier, bitwise).
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -703,6 +705,41 @@ def test_cnf_request_replay_bitwise_eager(cuda):
         x = torch.tensor(np.random.RandomState(seed).randn(256, 6),
                          dtype=torch.float32, device=cuda)
         assert _same_bits(graph(theta, x), request(theta, x))
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["buckets", "adaptive"])
+def test_ode_engine_captured_equals_eager_and_the_tiers(cuda, adaptive,
+                                                        tmp_path):
+    """``ODEEngine`` on the card: the captured programs (device tier, and
+    the adaptive path) equal the eager ones bitwise, the spill and disk
+    tiers the device tier, for every kind; every census is empty after."""
+    from repro_torch.serve import BucketSpec, ODEEngine
+    theta = ode_nets.cnf_vf_init(torch.Generator().manual_seed(0), 6,
+                                 hidden=(32, 32, 32), device=cuda)
+    w = torch.randn(6, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    pts = np.random.RandomState(4).randn(2 if adaptive else 7, 6).astype(
+        np.float32)
+    cases = ([dict(offload="spill"), dict(offload="spill", capture=False)]
+             if adaptive else
+             [dict(offload=None), dict(offload=None, capture=False),
+              dict(offload="spill"), dict(offload="disk",
+                                          spool_dir=str(tmp_path))])
+    outs = []
+    for kw in cases:
+        with ODEEngine(ode_nets.cnf_vf, theta, dim=6, dt=0.25, n_steps=4,
+                       method="dopri5", offload_segment=2,
+                       head=lambda u: u @ w, buckets=BucketSpec((8,)),
+                       adaptive=adaptive,
+                       max_steps=64, device=cuda, **kw) as eng:
+            ts = {k: [eng.submit(k, p) for p in pts] for k in ODEEngine.KINDS}
+            eng.run()
+            outs.append({k: [t.result(30) for t in v] for k, v in ts.items()})
+            assert not any(eng.slot_census().values())
+    for other in outs[1:]:
+        for k in ODEEngine.KINDS:
+            assert all(np.array_equal(a, b)
+                       for a, b in zip(outs[0][k], other[k])), k
 
 
 def test_engine_replay_sampling_matches_the_eager_loop(cuda_nondet):
