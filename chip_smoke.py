@@ -190,10 +190,32 @@ Phases (any failure exits non-zero, before the last line is printed):
    solve independent of its lanes; requests per second for each kind
    and bucket, and the spill and disk walls against the device tier's;
    no ``fused_lincomb`` launch and no plain call (counted);
+19. LM training (``repro_torch.launch.train``), deterministic algorithms
+   on: (a) the RWKV6 backward kernel ``rwkv6_chunked_bwd_fp32`` against
+   ``rwkv6_plain_vjp`` within ``RWKV6_BWD_TOL`` over dh 16/32/64, chunk
+   32/64, ragged S, fp32 and bf16 r/k/v and the training shape (B, S, H,
+   dh) = (4, 2048, 64, 64) with bf16 r/k/v read in place, BITWISE on a
+   second call, its three wrong answers beyond 10x, timed beside its bound
+   and plain version (no library call computes it); (b) one
+   ``make_train_step`` step of reduced TinyLlama (fp32, the chunked custom
+   backward at 600 positions: two 512-row blocks, the second ragged) and
+   RWKV6-7B (S 300, the RWKV6 kernels, counted) on the card against the
+   port on the CPU from the same parameters, and the none/full/sqrt/
+   revolve(1) depth remat gradients BITWISE equal on the card; (c)
+   TinyLlama-1.1B at its full config (22 layers, bf16, remat sqrt, the
+   chunked custom backward) for 4 steps of batch 2 x 4096 with a
+   checkpoint directory and a ``MetricsSink`` (step ms, tokens/s, the
+   allocator's peak over the first step), then again with step 2 poisoned:
+   one step skipped, the committed losses BITWISE the clean run's; (d)
+   RWKV6-7B at full width with 4 of its 32 layers (the fp32 moments of 32
+   layers do not fit 80 GB) for 3 steps of batch 4 x 2048, its RWKV6
+   forward and backward launches counted against
+   ``expected_rwkv6_train_calls``;
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
-   ``expected_rwkv6_calls``), its error against the plain version and
+   ``expected_rwkv6_calls`` / ``expected_rwkv6_train_calls``), its error
+   against the plain version and
    its times; then the nvidia-smi line; then the result line.
 
 The kernels' launch counters are set to 0 just before each main path
@@ -202,7 +224,8 @@ auto-planned classifier gradients and each of phase 16's counted
 gradients, phase 17's counted gradients, adaptive request and
 checkpointed training, phase 18's engines (0 expected) for
 ``fused_lincomb``, phase 6 and phase 17e's two
-serves for the flash kernel, phase 9 for the RWKV6 kernel) and read just after; comparisons
+serves for the flash kernel, phase 9 for the RWKV6 kernel, phase 19d's
+training for the RWKV6 forward and backward kernels) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
 come from the eager runs; the traced replays count the kernels the
@@ -215,6 +238,7 @@ import os
 # deterministic cuBLAS; must be set before torch initialises CUDA
 os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
+import contextlib  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -3586,6 +3610,393 @@ def ode_serving_phase(card, dev, theta, x):
                 spill_transfers_per_request=per_req)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training
+# ---------------------------------------------------------------------------
+
+# (B, H, S, dh) of RWKV6-7B's training step below: batch 4 x 2048 tokens
+TRAIN_BWD_SHAPE = (4, 64, 2048, 64)
+# the backward kernel's smaller cases: (B, H, S, dh, chunk, dtype); dh 16 is
+# the reduced configs' head, the S not a multiple of the chunk
+TRAIN_BWD_CASES = [(2, 4, 300, 16, 64, "float32"),
+                   (2, 4, 300, 16, 64, "bfloat16"),
+                   (1, 3, 100, 32, 32, "float32"),
+                   (2, 2, 2047, 64, 64, "float32")]
+# card against the CPU port: reduced configs (2 layers), fp32, TF32 off:
+# (arch, attention impl, batch, sequence); TinyLlama's 600 positions are two
+# 512-row blocks of the chunked custom backward, the second ragged; RWKV6's
+# 300 take the chunked form (the kernels) with a ragged last chunk
+TRAIN_CASES = [("tinyllama-1.1b", "chunked", 2, 600),
+               ("rwkv6-7b", "naive", 2, 300)]
+# AdamW of the card-vs-CPU steps: eps 1e-3 keeps the update a smooth
+# function of the gradient (with 1e-8 an element whose gradient is within
+# rounding of zero steps by +lr on one device and -lr on the other)
+TRAIN_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+# card vs CPU after one step, normwise (max|diff| / max|cpu|): the loss and
+# the grad norm at LM_CPU_REL_TOL; the moments m at 1e-3 and v (squares) at
+# 2e-3, 4x the RWKV6 backward kernel's fp32 limit (2**-12 of max|g|); the
+# params within lr * 1e-3 max|g| / eps of the update (d u / d g <= 1 / eps)
+TRAIN_M_TOL, TRAIN_V_TOL = 1e-3, 2e-3
+# the full-width runs through repro_torch.launch.train.train
+TRAIN_LM = dict(arch="tinyllama-1.1b", batch=2, seq=4096, steps=4,
+                nan_step=2)
+TRAIN_RWKV = dict(arch="rwkv6-7b", n_layers=4, batch=4, seq=2048, steps=3)
+
+
+@contextlib.contextmanager
+def nondeterministic():
+    """Deterministic algorithms off inside: the plain RWKV6 versions take a
+    cumsum, which PyTorch refuses on the card under them (the comparisons
+    within tolerances run there; no bitwise check does)."""
+    import torch
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det)
+
+
+def rwkv6_bwd_phase(card, dev):
+    """(a) The RWKV6 backward kernel against ``rwkv6_plain_vjp``, its wrong
+    answers, its bits run to run, and its times at the training shape."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_plain_vjp
+    from repro_torch.kernels.rwkv6_cases import (RWKV6_BWD_TOL,
+                                                 RWKV6_BWD_WRONG,
+                                                 rwkv6_bwd_ratio,
+                                                 rwkv6_vjp_chunked)
+    gen = torch.Generator(dev).manual_seed(19)
+    b, h, s, dh = TRAIN_BWD_SHAPE
+    cases = [(*c[:5], getattr(torch, c[5])) for c in TRAIN_BWD_CASES]
+    cases.append((b, h, s, dh, 64, torch.bfloat16))
+    ratio, worst, margins = 0.0, 0.0, {w: math.inf for w in RWKV6_BWD_WRONG}
+    for cb, ch, cs, cdh, c, dtype in cases:
+        a = rwkv6_bshd(cb, cs, ch, cdh, dtype, gen)
+        dy = torch.randn(a[0].shape, generator=gen, device=dev)
+        got = ops.rwkv6_chunked_bwd_fp32(*a, dy, chunk=c)
+        again = ops.rwkv6_chunked_bwd_fp32(*a, dy, chunk=c)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"the RWKV6 backward kernel gave other bits on a second call "
+              f"at {(cb, ch, cs, cdh, c)}")
+        check(all(g.dtype == t.dtype and g.shape == t.shape
+                  for g, t in zip(got, a)), "backward dtypes or shapes")
+        with nondeterministic():
+            plain = rwkv6_plain_vjp(*a, dy, chunk=c)
+            r = rwkv6_bwd_ratio(got, plain)
+            for w in RWKV6_BWD_WRONG:
+                margins[w] = min(margins[w], rwkv6_bwd_ratio(
+                    rwkv6_vjp_chunked(*a, dy, chunk=c, wrong=w), plain))
+        ratio = max(ratio, r)
+        worst = max(worst, max(max_abs(x, y) for x, y in zip(got, plain)))
+        check(r <= 1.0, f"the RWKV6 backward kernel exceeds its limits "
+              f"{RWKV6_BWD_TOL} at {(cb, ch, cs, cdh, c, str(dtype))}: "
+              f"ratio {r}")
+        del a, dy, got, again, plain
+    check(all(m > WRONG_MARGIN for m in margins.values()),
+          f"a wrong RWKV6 gradient within {WRONG_MARGIN}x of the limits: "
+          f"{margins}")
+    print(f"phase 19a rwkv6_chunked_bwd_fp32 vs rwkv6_plain_vjp over "
+          f"{len(cases)} cases (dh 16/32/64, chunk 32/64, ragged S, fp32 and "
+          f"bf16 r/k/v, the training shape {TRAIN_BWD_SHAPE} last): worst "
+          f"ratio to the limit {ratio:.4f} (limits {RWKV6_BWD_TOL}), "
+          f"max|diff| {worst:.3e}; BITWISE on a second call; wrong answers' "
+          f"margins {margins} {card}", flush=True)
+
+    c = 64
+    a = rwkv6_bshd(b, s, h, dh, torch.bfloat16, gen)
+    dy = torch.randn(a[0].shape, generator=gen, device=dev)
+    n = a[0].numel()
+    chunks = b * h * (-(-s // c))
+    # per chunk: the state recomputation k_out^T v, dq_in, dk_out, the two
+    # products of dv and q_in^T dy (C dh^2 MACs each); A, dA, dq_mid,
+    # dk_mid and A^T dy over the strictly lower triangle (C(C-1)/2 dh MACs
+    # each)
+    flops = chunks * (10 * c * dh * dh + 5 * c * (c - 1) * dh)
+    # read bf16 r, k, v and fp32 logw, dy; write bf16 dr, dk, dv and fp32
+    # dlogw; u read and du written once
+    nbytes = n * (3 * 2 + 2 * 4) + n * (3 * 2 + 4) + 2 * h * dh * 4
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kern = lambda: ops.rwkv6_chunked_bwd_fp32(*a, dy, chunk=c)  # noqa: E731
+
+    def plain():
+        with nondeterministic():
+            return rwkv6_plain_vjp(*a, dy, chunk=c)
+
+    row = dict(shape=[b, s, h, dh], chunk=c,
+               dtype="bfloat16 r/k/v and dr/dk/dv, float32 logw/u/dy/dlogw/du",
+               flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops_ms_fp32=ops_ms, bytes_ms=bytes_ms,
+               call_ms=time_ms(kern, 10, 2), plain_call_ms=time_ms(plain, 2, 1))
+    row["ms"] = device_ms(kern, iters=5)
+    row["plain_ms"] = device_ms(plain, iters=2)
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    print(f"  rwkv6_chunked_bwd_fp32 {(b, s, h, dh)} chunk {c}, bf16 r/k/v: "
+          f"kernel {row['ms']:.4f} ms (call {row['call_ms']:.4f})  plain "
+          f"{row['plain_ms']:.4f} ms (call {row['plain_call_ms']:.4f})  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} FLOP at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} "
+          f"B at 3.35 TB/s = {bytes_ms:.4f} ms), {row['x_bound']:.2f}x the "
+          f"bound; library: none {card}", flush=True)
+    del a, dy
+    gc_collect()
+    return dict(worst=worst, ratio=ratio, margins=margins, row=row,
+                cases=len(cases))
+
+
+def train_agreement_phase(card, dev):
+    """(b) One ``make_train_step`` step of reduced TinyLlama (the chunked
+    custom backward) and RWKV6-7B (the RWKV6 kernels) on the card against
+    the port on the CPU, from the same parameters and tokens, and the
+    four depth remat policies' gradients BITWISE equal on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+
+    out = {}
+    for arch, impl, b, s in TRAIN_CASES:
+        cfg = reduced(get_arch(arch), n_layers=2, attn_impl=impl)
+        cpu_p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        card_p = pytree.tree_map(lambda t: t.to(dev), cpu_p)
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (b, s)).astype(np.int32))
+        cpu_b = {"tokens": toks, "targets": toks}
+        card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+        opt = AdamW(**TRAIN_OPT)
+        step = make_train_step(cfg, opt)
+        p_cpu, s_cpu, m_cpu = step(cpu_p, opt.init(cpu_p), cpu_b, 0)
+        ops.reset_counts()
+        p_card, s_card, m_card = step(card_p, opt.init(card_p), card_b, 0)
+        torch.cuda.synchronize()
+        counts = (ops.rwkv6_launches, ops.rwkv6_bwd_launches,
+                  ops.rwkv6_plain_calls, ops.rwkv6_bwd_plain_calls)
+        fwd, bwd = lm.expected_rwkv6_train_calls(cfg, s, cfg.remat)
+        check(counts == (fwd, bwd, 0, 0),
+              f"{arch} train step on the card: RWKV6 (forward, backward) "
+              f"launches and plain calls {counts}, expected ({fwd}, {bwd}, "
+              "0, 0)")
+        rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+               / abs(float(m_cpu[k])) for k in ("loss", "grad_norm")}
+        m_err = max(rel_err(a.cpu(), c) for a, c in
+                    zip(pytree.tree_leaves(s_card.m),
+                        pytree.tree_leaves(s_cpu.m)))
+        v_err = max(rel_err(a.cpu(), c) for a, c in
+                    zip(pytree.tree_leaves(s_card.v),
+                        pytree.tree_leaves(s_cpu.v)))
+        p_ratio = 0.0
+        for pa, pc, mc in zip(pytree.tree_leaves(p_card),
+                              pytree.tree_leaves(p_cpu),
+                              pytree.tree_leaves(s_cpu.m)):
+            g_max = float(mc.abs().max()) / (1 - opt.b1)
+            bound = opt.lr * TRAIN_M_TOL * g_max / opt.eps + 1e-7
+            p_ratio = max(p_ratio, max_abs(pa.cpu(), pc) / bound)
+        check(rel["loss"] <= LM_CPU_REL_TOL
+              and rel["grad_norm"] <= LM_CPU_REL_TOL
+              and m_err <= TRAIN_M_TOL and v_err <= TRAIN_V_TOL
+              and p_ratio <= 1.0,
+              f"{arch} train step, card vs CPU: loss and grad norm rel "
+              f"{rel} (tolerance {LM_CPU_REL_TOL}), moments m {m_err} "
+              f"(tolerance {TRAIN_M_TOL}), v {v_err} ({TRAIN_V_TOL}), params "
+              f"{p_ratio} of their bound")
+        # the depth remat policies on the card: BITWISE the same gradients
+        grads = {}
+        for remat, ncheck in (("none", None), ("full", None),
+                              ("sqrt", None), ("revolve", 1)):
+            c2 = dataclasses.replace(cfg, remat=remat, ncheck=ncheck)
+            loss, _, g = value_and_grad(c2, card_p, card_b)
+            grads[remat] = [loss] + pytree.tree_leaves(g)
+        for remat, leaves in grads.items():
+            check(all(torch.equal(bits(x), bits(y)) for x, y in
+                      zip(leaves, grads["none"])),
+                  f"{arch}: remat={remat!r} gradients differ from 'none' on "
+                  "the card")
+        out[arch] = dict(loss_card=float(m_card["loss"]),
+                         loss_cpu=float(m_cpu["loss"]), rel=rel, m_err=m_err,
+                         v_err=v_err, param_ratio=p_ratio, launches=counts[:2],
+                         expected=(fwd, bwd))
+        print(f"phase 19b {arch} reduced (2 layers, fp32, {impl}, batch {b} x "
+              f"{s}): card vs CPU loss {float(m_card['loss']):.7f} vs "
+              f"{float(m_cpu['loss']):.7f}, rel {rel}, moments m {m_err:.3e} "
+              f"v {v_err:.3e}, params {p_ratio:.3e} of their bound; RWKV6 "
+              f"launches (forward, backward) {counts[:2]} (expected "
+              f"{(fwd, bwd)}); none/full/sqrt/revolve(1) gradients BITWISE "
+              f"equal on the card {card}", flush=True)
+        del cpu_p, card_p, p_cpu, p_card, s_cpu, s_card, grads
+        gc_collect()
+    return out
+
+
+def train_records(path):
+    from repro_torch.obs import read_jsonl
+    recs = read_jsonl(str(path))
+    steps = [r for r in recs if r["event"] == "train.step"]
+    peak = next(r["measured_peak_bytes"] for r in recs
+                if r["event"] == "train.compile")
+    return steps, peak
+
+
+def traced_train_step(cfg, spec, kernel, card, dev):
+    """Where a train step's time goes: one traced ``make_train_step`` step
+    (the loop's, sentinel on) on fresh weights, after a warm-up step."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+
+    cell = ShapeCell("train", spec["seq"], spec["batch"], "train")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    opt = AdamW(total_steps=spec["steps"])
+    state = opt.init(params)
+    batch = {k: v.to(dev) for k, v in SyntheticLM(cfg, cell).batch(0).items()}
+    step = make_train_step(cfg, opt, sentinel=True)
+    step(params, state, batch, 0)
+    res = traced(f"{cfg.name} train step ({spec['batch']} x {spec['seq']})",
+                 lambda: step(params, state, batch, 0), kernel, card)
+    del params, state
+    gc_collect()
+    return res
+
+
+def lm_training_phase(card, dev):
+    """(c) TinyLlama-1.1B at full config (22 layers, bf16) and (d)
+    RWKV6-7B at full width with 4 of 32 layers, through
+    ``repro_torch.launch.train.train``."""
+    import dataclasses
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.mem.model import tree_bytes
+    from repro_torch.models import lm
+    from repro_torch.obs import MetricsSink
+
+    def run(cfg, spec, ckpt=False, **kw):
+        cell = ShapeCell("train", spec["seq"], spec["batch"], "train")
+        with tempfile.TemporaryDirectory() as tmp:
+            sink = MetricsSink(f"{tmp}/metrics.jsonl")
+            if ckpt:
+                kw["ckpt_dir"] = f"{tmp}/ckpt"
+            t0 = time.time()
+            try:
+                res = train(cfg, cell, steps=spec["steps"], sink=sink,
+                            device=dev, log_every=1,
+                            log_fn=lambda m: print("  " + m, flush=True),
+                            **kw)
+            finally:
+                sink.close()
+            wall = time.time() - t0
+            steps, peak = train_records(f"{tmp}/metrics.jsonl")
+        tokens = spec["batch"] * spec["seq"]
+        step_ms = [r["step_ms"] for r in steps]
+        n = sum(t.numel() for t in pytree.tree_leaves(res["params"]))
+        row = dict(losses=res["losses"], step_ms=step_ms,
+                   tok_per_s=[tokens / (ms / 1e3) for ms in step_ms],
+                   peak_bytes=peak, param_bytes=tree_bytes(res["params"]),
+                   moment_bytes=8 * n, params=n, wall_s=wall,
+                   skipped=res["skipped_steps"])
+        check(all(math.isfinite(x) for x in res["losses"])
+              and len(res["losses"]) == spec["steps"],
+              f"{cfg.name} training: losses {res['losses']}")
+        del res
+        gc_collect()
+        return row
+
+    # (c) TinyLlama-1.1B: attn_impl "auto" takes the chunked custom
+    # backward at 4096 positions; remat "sqrt" (the config's)
+    cfg = get_arch(TRAIN_LM["arch"])
+    check(cfg.remat == "sqrt" and cfg.attn_impl == "auto",
+          "TinyLlama's config: remat and attention")
+    clean = run(cfg, TRAIN_LM, ckpt=True)
+    faulted = run(cfg, TRAIN_LM, ckpt=True, fault_plan=FaultPlan(
+        [FaultSpec("train.step", TRAIN_LM["nan_step"], "nan")]))
+    check(faulted["skipped"] == 1 and faulted["losses"] == clean["losses"],
+          f"TinyLlama with step {TRAIN_LM['nan_step']} poisoned: "
+          f"{faulted['skipped']} skipped, committed losses "
+          f"{faulted['losses']} against the clean {clean['losses']}")
+    clean["trace"] = traced_train_step(cfg, TRAIN_LM, "gemm", card, dev)
+    for i, (ms, tps) in enumerate(zip(clean["step_ms"], clean["tok_per_s"])):
+        print(f"phase 19c TinyLlama-1.1B train step {i}: loss "
+              f"{clean['losses'][i]:.6f}  {ms:.1f} ms  {tps:.1f} tokens/s "
+              f"{card}")
+    print(f"phase 19c TinyLlama-1.1B ({cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, batch {TRAIN_LM['batch']} x "
+          f"{TRAIN_LM['seq']}, remat {cfg.remat}, attention "
+          f"{cfg.attn_impl}): peak allocated {clean['peak_bytes']} B over "
+          f"the first step (params {clean['param_bytes']} B, moments "
+          f"{clean['moment_bytes']} B); wall {clean['wall_s']:.1f} s with the "
+          f"checkpoint; with step {TRAIN_LM['nan_step']} poisoned: 1 step "
+          f"skipped, committed losses BITWISE the clean run's "
+          f"({faulted['wall_s']:.1f} s) {card}", flush=True)
+
+    # (d) RWKV6-7B at full width, 4 of 32 layers: 32 layers' fp32 AdamW
+    # moments (61 GB), bf16 params and bf16 gradients (15 GB each) exceed
+    # the card's 80 GB
+    base = get_arch(TRAIN_RWKV["arch"])
+    cfg = dataclasses.replace(base, n_layers=TRAIN_RWKV["n_layers"],
+                              layer_kinds=("w",) * TRAIN_RWKV["n_layers"])
+    check(cfg.remat == "sqrt", "RWKV6-7B's remat")
+    fwd, bwd = lm.expected_rwkv6_train_calls(cfg, TRAIN_RWKV["seq"],
+                                             cfg.remat)
+    ops.reset_counts()
+    rw = run(cfg, TRAIN_RWKV)
+    launches = (ops.rwkv6_launches, ops.rwkv6_bwd_launches)
+    plain = (ops.rwkv6_plain_calls, ops.rwkv6_bwd_plain_calls)
+    expected = (fwd * TRAIN_RWKV["steps"], bwd * TRAIN_RWKV["steps"])
+    check(launches == expected and launches[1] > 0 and plain == (0, 0),
+          f"RWKV6-7B training: RWKV6 (forward, backward) launches "
+          f"{launches}, expected {expected}; plain calls {plain}")
+    rw["trace"] = traced_train_step(cfg, TRAIN_RWKV, "rwkv6_chunked", card,
+                                    dev)
+    for i, (ms, tps) in enumerate(zip(rw["step_ms"], rw["tok_per_s"])):
+        print(f"phase 19d RWKV6-7B (4 layers) train step {i}: loss "
+              f"{rw['losses'][i]:.6f}  {ms:.1f} ms  {tps:.1f} tokens/s {card}")
+    print(f"phase 19d RWKV6-7B full width, {TRAIN_RWKV['n_layers']} of 32 "
+          f"layers ({rw['params']} params, bf16), batch {TRAIN_RWKV['batch']}"
+          f" x {TRAIN_RWKV['seq']}, remat sqrt: RWKV6 launches (forward, "
+          f"backward) {launches} (expected {expected}); peak allocated "
+          f"{rw['peak_bytes']} B over the first step (params "
+          f"{rw['param_bytes']} B, moments {rw['moment_bytes']} B) {card}",
+          flush=True)
+    return dict(tinyllama=dict(clean, faulted_losses_bitwise=True),
+                rwkv6=dict(rw, launches=launches, expected=expected))
+
+
+def training_phase(card, dev):
+    """Phase 19: the backward kernel, card against CPU, the full-width
+    runs.  Deterministic algorithms on for all of it (the bitwise remat
+    and fault checks need them)."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        kernel = rwkv6_bwd_phase(card, dev)
+        agreement = train_agreement_phase(card, dev)
+        runs = lm_training_phase(card, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(kernel=kernel, agreement=agreement, runs=runs)
+
+
 def gc_collect():
     import gc
     import torch
@@ -3893,6 +4304,11 @@ def main():
     serving = ode_serving_phase(card, dev, cnf_theta, x)
     lap("18 ODE serving")
 
+    # -- phase 19: LM training, counted ---------------------------------------
+    gc_collect()
+    training = training_phase(card, dev)
+    lap("19 LM training")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -4020,6 +4436,41 @@ def main():
                    "recurrence",
         "timed_case": {k: rw["inplace"][k] for k in
                        ("shape", "chunk", "dtype", "flops", "bytes")},
+        "launches_train": training["runs"]["rwkv6"]["launches"][0],
+        "expected_launches_train": training["runs"]["rwkv6"]["expected"][0],
+        "card": smi,
+    }, {
+        "name": "rwkv6_chunked_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cuh",
+        "replaces": "src/repro/nn/ssm.py:139",
+        "replaces_note": "no TPU kernel: it takes the place of XLA's "
+                         "autodiff of the JAX package's chunk_step scan "
+                         "(src/repro/nn/ssm.py:139-160), the gradient of the "
+                         "port's forward kernel in training",
+        "launches": training["runs"]["rwkv6"]["launches"][1],
+        "expected_launches": training["runs"]["rwkv6"]["expected"][1],
+        "max_abs_err": training["kernel"]["worst"],
+        "limit_ratio_vs_plain": training["kernel"]["ratio"],
+        "wrong_answer_margins": training["kernel"]["margins"],
+        "ms": training["kernel"]["row"]["ms"],
+        "kernel_ms": training["kernel"]["row"]["ms"],
+        "call_ms": training["kernel"]["row"]["call_ms"],
+        "plain_ms": training["kernel"]["row"]["plain_ms"],
+        "plain_call_ms": training["kernel"]["row"]["plain_call_ms"],
+        "bound_ms": training["kernel"]["row"]["bound_ms"],
+        "bound_by": training["kernel"]["row"]["bound_by"],
+        "bound_parts_ms": {k: training["kernel"]["row"][k] for k in
+                           ("ops_ms_fp32", "bytes_ms")},
+        "x_bound": training["kernel"]["row"]["x_bound"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the RWKV6 "
+                   "recurrence's gradient",
+        "timed_case": {k: training["kernel"]["row"][k] for k in
+                       ("shape", "chunk", "dtype", "flops", "bytes")},
+        "train": {"card_vs_cpu": training["agreement"],
+                  "tinyllama_1_1b": training["runs"]["tinyllama"],
+                  "rwkv6_7b_4_layers": training["runs"]["rwkv6"]},
         "card": smi,
     }, {
         "name": "rwkv6_chunked",

@@ -9,6 +9,10 @@ in r's dtype, as the JAX package's) and ``rwkv6_chunked_fp32`` (the RWKV6
 prefill's: the model's (B,S,H,dh) projections read in place, fp32 out)
 are the chunked RWKV6 recurrence (``csrc/rwkv6_scan.cuh``), one kernel.
 
+``rwkv6_chunked_bwd_fp32`` is that recurrence's gradient
+(``csrc/rwkv6_scan_bwd.cuh``), the backward of ``rwkv6_chunked_fp32`` in
+training; it replaces no TPU kernel (the TPU kernel is forward only).
+
 ``fused_lincomb`` is the RK stage-update / stage-adjoint primitive:
 
     forward stage inputs   x_i = u + h * sum_j a_ij k_j
@@ -28,7 +32,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import attention_plain, lincomb_plain, rwkv6_plain
+from repro_torch.kernels.ref import (attention_plain, lincomb_plain,
+                                    rwkv6_plain, rwkv6_plain_vjp)
 
 MAX_TERMS = 8
 
@@ -45,17 +50,24 @@ flash_plain_calls = 0
 rwkv6_launches = 0
 #: calls that ``rwkv6_chunked_bhsd`` served with ``rwkv6_plain`` (CPU)
 rwkv6_plain_calls = 0
+#: launches of the RWKV6 backward kernel by ``rwkv6_chunked_bwd_fp32``
+rwkv6_bwd_launches = 0
+#: calls that ``rwkv6_chunked_bwd_fp32`` served with ``rwkv6_plain_vjp``
+rwkv6_bwd_plain_calls = 0
 
 
 def reset_counts() -> None:
     global launches, plain_calls, flash_launches, flash_plain_calls
     global rwkv6_launches, rwkv6_plain_calls
+    global rwkv6_bwd_launches, rwkv6_bwd_plain_calls
     launches = 0
     plain_calls = 0
     flash_launches = 0
     flash_plain_calls = 0
     rwkv6_launches = 0
     rwkv6_plain_calls = 0
+    rwkv6_bwd_launches = 0
+    rwkv6_bwd_plain_calls = 0
 
 
 def _args_type(ctype):
@@ -527,8 +539,7 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk: int = 64):
     return out.transpose(1, 2)[:, :s], state
 
 
-def _check_rwkv6_fp32(r, k, v, logw, u, chunk):
-    name = "rwkv6_chunked_fp32"
+def _check_rwkv6_fp32(r, k, v, logw, u, chunk, name="rwkv6_chunked_fp32"):
     _check_rwkv6_operands(name, "B,S,H,dh", r, k, v, logw, u, torch.float32)
     if any(t.stride(-1) != 1 for t in (r, k, v, logw, u)):
         raise ValueError(f"{name}: the innermost (dh) stride of every "
@@ -562,3 +573,100 @@ def rwkv6_chunked_fp32(r, k, v, logw, u, *, chunk: int = 64):
         raise ValueError(f"rwkv6_chunked_fp32: unsupported device {r.device}")
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     return _rwkv6_launch("rwkv6_chunked_fp32", r, k, v, logw, u, out, chunk)
+
+
+# ---------------------------------------------------------------------------
+# the gradient of the chunked RWKV6 recurrence (the model path's backward)
+# ---------------------------------------------------------------------------
+
+#: head dims and chunk lengths the backward kernel is instantiated for
+RWKV6_BWD_HEAD_DIMS = (16, 32, 64)
+RWKV6_BWD_CHUNKS = (16, 32, 64)
+#: r/k/v dtype -> the C entry of the backward kernel's instantiation
+_RWKV6_BWD_FN = {torch.float32: "repro_rwkv6_chunked_bwd_f32",
+                 torch.bfloat16: "repro_rwkv6_chunked_bwd_bf16"}
+
+
+class Rwkv6BwdArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("r", "k", "v", "logw", "u", "dy", "dr", "dk", "dv",
+                  "dlogw", "du", "ws")]
+                + [(n, ctypes.c_longlong * 3) for n in
+                   ("r_stride", "k_stride", "v_stride", "w_stride",
+                    "y_stride", "dr_stride", "dk_stride", "dv_stride",
+                    "dw_stride")]
+                + [("b", ctypes.c_int), ("h", ctypes.c_int),
+                   ("s", ctypes.c_int)])
+
+
+def _rwkv6_bwd_kernel(dtype):
+    fn = _bound.get(("rwkv6_bwd", dtype))
+    if fn is None:
+        from repro_torch.kernels import _build  # builds on first launch
+        fn = getattr(_build.load("rwkv6_scan_bwd"), _RWKV6_BWD_FN[dtype])
+        fn.argtypes = [Rwkv6BwdArgs, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[("rwkv6_bwd", dtype)] = fn
+    return fn
+
+
+def rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, *, chunk: int = 64):
+    """The gradient of ``rwkv6_chunked_fp32`` (out only: the final state
+    gets none) with respect to its operands: r/k/v (B,S,H,dh) of one dtype
+    (fp32 or bf16), logw and dy (B,S,H,dh) fp32, u (H,dh) fp32, any S,
+    each with a unit dh stride.  Returns (dr, dk, dv, dlogw, du), each
+    contiguous in its operand's shape and dtype.
+
+    A CUDA tensor launches ``csrc/rwkv6_scan_bwd.cuh`` (dh in
+    ``RWKV6_BWD_HEAD_DIMS``, chunk in ``RWKV6_BWD_CHUNKS``) on the views
+    in place, or raises; its workspace holds the state entering every
+    chunk (B H n_chunks dh^2 fp32), and ``du`` is the sum over the batch of
+    the kernel's per-(b, h) parts.  A CPU tensor takes ``rwkv6_plain_vjp``
+    (autograd of ``rwkv6_plain`` on upcast, zero-padded copies)."""
+    global rwkv6_bwd_launches, rwkv6_bwd_plain_calls
+    name = "rwkv6_chunked_bwd_fp32"
+    chunk = int(chunk)
+    _check_rwkv6_fp32(r, k, v, logw, u, chunk, name)
+    if dy.shape != r.shape or dy.dtype != torch.float32 \
+            or dy.device != r.device:
+        raise ValueError(f"{name}: dy must be fp32 of r's shape and device; "
+                         f"got {dy.dtype}/{tuple(dy.shape)}/{dy.device}")
+    if r.device.type == "cpu":
+        rwkv6_bwd_plain_calls += 1
+        return rwkv6_plain_vjp(r, k, v, logw, u, dy, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {r.device}")
+    b, s, h, dh = r.shape
+    if dh not in RWKV6_BWD_HEAD_DIMS or chunk not in RWKV6_BWD_CHUNKS:
+        raise ValueError(f"{name}: head dim {dh} / chunk {chunk} not in "
+                         f"{RWKV6_BWD_HEAD_DIMS} / {RWKV6_BWD_CHUNKS}")
+    if b * h == 0 or s == 0:
+        raise ValueError(f"{name}: empty batch, heads or sequence")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    u = u.contiguous()
+    nc = -(-s // chunk)
+    dev = r.device
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+             for t in (r, k, v, logw)]
+    du_part = torch.empty((b * h, dh), dtype=torch.float32, device=dev)
+    ws = torch.empty((b * h, nc, dh, dh), dtype=torch.float32, device=dev)
+
+    def strides(t):
+        return (t.stride(0), t.stride(1), t.stride(2))
+
+    dr, dk, dv, dlogw = grads
+    args = Rwkv6BwdArgs(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogw.data_ptr(), du_part.data_ptr(), ws.data_ptr(),
+        strides(r), strides(k), strides(v), strides(logw), strides(dy),
+        strides(dr), strides(dk), strides(dv), strides(dlogw), b, h, s)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _rwkv6_bwd_kernel(r.dtype)(args, dh, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    rwkv6_bwd_launches += 1
+    return dr, dk, dv, dlogw, du_part.view(b, h, dh).sum(0)

@@ -6,8 +6,9 @@ the card they are the oracle the kernels are held against: bitwise for
 kernels, whose sums run in another order.  ``rwkv6_ref`` is the
 sequential RWKV6 oracle (the JAX package's ``rwkv6_ref``);
 ``rwkv6_plain`` is the chunked algorithm of the TPU kernel and the RWKV6
-kernel's plain version.  ``limit_ratio`` says how far a kernel's output is
-from its oracle, in units of a stated limit."""
+kernel's plain version; ``rwkv6_plain_vjp``, autograd through it, is the
+plain version of the RWKV6 backward kernel.  ``limit_ratio`` says how far
+a kernel's output is from its oracle, in units of a stated limit."""
 from __future__ import annotations
 
 import math
@@ -122,21 +123,28 @@ def rwkv6_chunk_step(S, r, k, v, lw, u):
     return o_inter + o_intra + o_diag, S
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 operands."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def rwkv6_plain(r, k, v, logw, u, *, chunk: int = 64, state=None):
     """Plain version of ``ops.rwkv6_chunked_bhsd``: ``rwkv6_chunk_step``
     over the chunks in order.  r/k/v/logw: (B,H,S,dh) with S a multiple of
     ``chunk``; u: (H,dh).  Every operand is upcast to fp32, as the TPU
-    kernel does; the state starts from zero, or from ``state`` (B,H,dh,dh)
-    where a caller carries one (the kernel does not).  Returns (out in
-    r's dtype, final state fp32)."""
+    kernel does (fp64 operands stay fp64, for the gradient tests); the
+    state starts from zero, or from ``state`` (B,H,dh,dh) where a caller
+    carries one (the kernel does not).  Returns (out in r's dtype, final
+    state in the compute dtype)."""
     b, h, s, dh = r.shape
     if s % chunk:
         raise ValueError(f"rwkv6_plain: S={s} is not a multiple of the "
                          f"chunk {chunk}")
-    rf, kf, vf, lwf = (t.float() for t in (r, k, v, logw))
-    uf = u.float()
-    S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device) \
-        if state is None else state.float()
+    ft = _compute_dtype(r)
+    rf, kf, vf, lwf = (t.to(ft) for t in (r, k, v, logw))
+    uf = u.to(ft)
+    S = torch.zeros((b, h, dh, dh), dtype=ft, device=r.device) \
+        if state is None else state.to(ft)
     outs = []
     for i in range(0, s, chunk):
         sl = slice(i, i + chunk)
@@ -144,6 +152,37 @@ def rwkv6_plain(r, k, v, logw, u, *, chunk: int = 64, state=None):
                                 lwf[:, :, sl], uf)
         outs.append(o)
     return torch.cat(outs, 2).to(r.dtype), S
+
+
+def _bhsd_padded(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B,S,H,dh) -> (B,H,S',dh), zero-padded along S to a multiple of
+    ``chunk`` (differentiable: the gradient strips the padding)."""
+    tt = t.transpose(1, 2)
+    pad = (-tt.shape[2]) % chunk
+    return torch.nn.functional.pad(tt, (0, 0, 0, pad)) if pad else tt
+
+
+def rwkv6_plain_vjp(r, k, v, logw, u, dy, *, chunk: int = 64):
+    """Plain version of ``ops.rwkv6_chunked_bwd_fp32``: the gradient of
+    ``rwkv6_plain``'s output (not its final state) with respect to r, k,
+    v, logw (B,S,H,dh) and u (H,dh), against the output gradient dy
+    (B,S,H,dh), by ``torch.autograd.grad`` through ``rwkv6_plain`` on
+    upcast copies (fp64 stays fp64) zero-padded to a multiple of
+    ``chunk``: the function the JAX package differentiates (its
+    ``chunk_step`` scan on padded fp32 copies).  Returns (dr, dk, dv,
+    dlogw, du), each contiguous in its operand's dtype.  (``rwkv6_plain``
+    takes a cumsum, which PyTorch refuses on the card under deterministic
+    algorithms.)"""
+    ft = _compute_dtype(r)
+    leaves = [t.detach().to(ft).clone().requires_grad_(True)
+              for t in (r, k, v, logw, u)]
+    with torch.enable_grad():
+        out, _ = rwkv6_plain(*(_bhsd_padded(t, chunk) for t in leaves[:4]),
+                             leaves[4], chunk=chunk)
+        grads = torch.autograd.grad(
+            out, leaves, _bhsd_padded(dy.detach().to(ft), chunk))
+    return tuple(g.to(t.dtype).contiguous()
+                 for g, t in zip(grads, (r, k, v, logw, u)))
 
 
 def limit_ratio(out, ref, rtol, atol_rel=0.0, atol=0.0):

@@ -426,8 +426,8 @@ def plan_depth_remat(cfg, cell, mem_budget: int,
                      act_mult: float = 12.0
                      ) -> Tuple[str, Optional[int], bool]:
     """Map a byte budget to a depth-checkpointing policy for the layer-stack
-    scan (the JAX package's ``core/depth_ode.checkpointed_scan``; the
-    port's arrives with ROADMAP Queue 1 item 8): the ResNet<->ODE duality
+    scan (``core/depth_ode.py::checkpointed_scan``, which
+    ``nn/transformer.py::apply_stack`` runs): the ResNet<->ODE duality
     makes the layer stack a forward-Euler solve, so the same Table-2 trade
     applies with S = one residual-stream state and A ~ act_mult*S the
     transformer block's live activations.

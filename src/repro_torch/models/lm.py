@@ -10,8 +10,8 @@ Batch dict conventions (the JAX package's):
 
 The encoder-decoder family and the vision/audio frontend stubs raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 13), as do the layer kinds
-``nn/transformer.py`` does not port yet.  ``loss_fn`` gives the value only:
-its backward comes with training.
+``nn/transformer.py`` does not port yet.  ``loss_fn`` is differentiable:
+``launch/steps.py::make_train_step`` takes its gradient.
 """
 from __future__ import annotations
 
@@ -85,13 +85,14 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
-    """Next-token cross-entropy (+ 0.01 * aux), value only.  Returns (loss,
-    metrics).  The logsumexp subtracts the max in the compute dtype and
-    sums in fp32, as the JAX package does."""
+    """Next-token cross-entropy (+ 0.01 * aux).  Returns (loss, metrics).
+    The logsumexp subtracts the max in the compute dtype and sums in fp32,
+    as the JAX package does; the max is detached (JAX's
+    ``stop_gradient``), so the gradient is the softmax's."""
     logits, aux = forward(cfg, params, batch)
     logits = logits[:, :-1]
     tgt = batch["targets"][:, 1:]
-    m = logits.amax(dim=-1, keepdim=True)
+    m = logits.amax(dim=-1, keepdim=True).detach()
     logz = m[..., 0].float() + torch.log(
         torch.exp((logits - m).float()).sum(dim=-1))
     gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0].float()
@@ -159,3 +160,21 @@ def expected_rwkv6_calls(cfg: ModelConfig, prompt_len: int,
     if prompt_len <= 256:
         return 0
     return sum(k == "w" for k in cfg.kinds) * int(prefill_waves)
+
+
+def expected_rwkv6_train_calls(cfg: ModelConfig, seq_len: int, remat: str,
+                               accum: int = 1) -> tuple[int, int]:
+    """(forward, backward) launches of the RWKV6 kernels that one train
+    step of ``seq_len``-token sequences makes under the depth remat policy
+    ``remat``: per RWKV6 layer and microbatch, one forward and one backward
+    kernel, plus one recomputed forward for each layer inside a
+    checkpointed unit (``'full'``, ``'sqrt'`` and ``'revolve'`` recompute
+    every unit once; the unrolled remainder layers are not recomputed).
+    At or below 256 tokens the sequential scan runs: (0, 0)."""
+    if seq_len <= 256:
+        return 0, 0
+    unit, n_units, rem = tf.stack_plan(cfg)
+    scanned = sum(k == "w" for k in unit) * n_units
+    n_w = scanned + sum(k == "w" for k in rem)
+    recomputes = 0 if remat == "none" else 1
+    return (int(accum) * (n_w + recomputes * scanned), int(accum) * n_w)

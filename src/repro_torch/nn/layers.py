@@ -64,7 +64,11 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32, *,
 
 
 def embedding(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids]
+    """The rows of the table at ``ids`` (a gather, as the JAX package's
+    ``table[ids]``).  ``F.embedding``'s backward sums the rows' gradients
+    in a fixed order; the indexing form's runs in parallel on the CPU and
+    gives other bits from run to run."""
+    return F.embedding(ids, params["table"])
 
 
 _ACTS = {

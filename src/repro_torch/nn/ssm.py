@@ -27,6 +27,14 @@ scan; the port puts the Hopper kernel that replaces the TPU kernel
   padding, the same ``mid = cum[c // 2]``.  On the card, the in-place
   read gives bit for bit what the kernel gives on the upcast, padded
   copies.
+- Gradients: the chunked form with ``state=None`` is a
+  ``torch.autograd.Function`` (``_Rwkv6Chunked``) whose forward is
+  ``rwkv6_chunked_fp32`` and whose backward is
+  ``ops.rwkv6_chunked_bwd_fp32``, the RWKV6 backward kernel on the card
+  (``rwkv6_plain_vjp`` for CPU tensors): the same function the JAX
+  package's autodiff of ``chunk_step`` computes.  The final state it
+  returns carries no gradient (training drops it); a gradient arriving
+  for it raises.  ``rwkv6_mix_scan`` is plain torch under autograd.
 - Given a ``state`` it runs ``rwkv6_plain`` from that state on the CPU and
   raises on the card: the kernel starts from a zero state, as the TPU
   kernel does.  No caller in the JAX package passes one.
@@ -51,6 +59,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rwkv6_plain
@@ -150,6 +159,33 @@ def _rwkv_out(params, y, g, dtype, b, s, d):
     return y @ params["w_o"].to(dtype)
 
 
+class _Rwkv6Chunked(torch.autograd.Function):
+    """The chunked recurrence from a zero state: forward
+    ``ops.rwkv6_chunked_fp32``, backward ``ops.rwkv6_chunked_bwd_fp32``
+    (the output's gradient only: the final state gets none)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk):
+        y, state = ops.rwkv6_chunked_fp32(r, k, v, logw, u, chunk=chunk)
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dstate):
+        if dstate is not None:
+            raise NotImplementedError(
+                "rwkv6_mix_chunked: the final state carries no gradient "
+                "(training drops it, as the JAX package's stack does)")
+        if dy is None:
+            return (None,) * 6
+        grads = ops.rwkv6_chunked_bwd_fp32(*ctx.saved_tensors, dy,
+                                           chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def rwkv6_mix_chunked(params, x: torch.Tensor, n_heads: int,
                       state: torch.Tensor | None = None, chunk: int = 64):
     """Chunked-parallel form (matches the scan oracle; the routing rule is
@@ -159,7 +195,7 @@ def rwkv6_mix_chunked(params, x: torch.Tensor, n_heads: int,
     u = params["u_bonus"]
     c = min(chunk, s)
     if state is None:
-        y, state = ops.rwkv6_chunked_fp32(r, k, v, logw, u, chunk=c)
+        y, state = _Rwkv6Chunked.apply(r, k, v, logw, u, c)
     elif x.device.type == "cpu":
         y, state = rwkv6_plain(*(ops.bhsd_padded(t.float(), c)
                                  for t in (r, k, v, logw)),

@@ -16,10 +16,15 @@ JAX package's rule; its decode state is the fp32 recurrence state ``S``
 and the last normed inputs of the two token shifts, ``tm_prev`` and
 ``cm_prev``.
 
+The training pass (``apply_stack``) runs the units through
+``core/depth_ode.py::checkpointed_scan`` with ``cfg.remat`` and
+``cfg.ncheck`` (the depth remat policy), carrying (x, aux) as the JAX
+package does, and unrolls the remainder layers; prefill and decode run
+no remat.
+
 Not ported yet, each raising ``NotImplementedError``: RG-LRU layers (kind
 ``'r'``) and MoE (ROADMAP Queue 1 item 13; cross-attention comes with the
-enc-dec family, which ``models/lm.py`` refuses), and ``checkpointed_scan``,
-the depth remat of training (Queue 1 item 8).
+enc-dec family, which ``models/lm.py`` refuses).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.depth_ode import checkpointed_scan
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.layers import (glu_mlp, glu_mlp_init,
@@ -167,15 +173,26 @@ def init_stack(gen, cfg: ModelConfig, *, device="cpu") -> Params:
 
 
 def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    """The full depth stack, forward (no remat).  Returns (x, aux_sum)."""
+    """The full depth stack with the configured depth remat policy
+    (``cfg.remat``, ``cfg.ncheck``) over the units; the remainder layers
+    unrolled.  Returns (x, aux_sum)."""
     unit, n_units, rem = stack_plan(cfg)
     w_scan, w_rem = _unit_windows(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(n_units):
-        up = _index(params["scan"], u)
-        for i, kind in enumerate(unit):
-            x, a = apply_layer(cfg, kind, up[f"{i}_{kind}"], x, w_scan[u][i])
+    # the units' windows ride along the scan as a host tensor, as the JAX
+    # package scans an int array beside the stacked parameters
+    wins = torch.tensor(w_scan, dtype=torch.long).reshape(n_units, len(unit))
+
+    def unit_fn(carry, scanned):
+        xx, aux = carry
+        up, w = scanned
+        for i, (kind, wi) in enumerate(zip(unit, w.tolist())):
+            xx, a = apply_layer(cfg, kind, up[f"{i}_{kind}"], xx, wi)
             aux = aux + a
+        return xx, aux
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = checkpointed_scan(unit_fn, (x, aux0), (params["scan"], wins),
+                               n_units, remat=cfg.remat, ncheck=cfg.ncheck)
     for i, kind in enumerate(rem):
         x, a = apply_layer(cfg, kind, params["rem"][f"rem{i}_{kind}"], x,
                            w_rem[i])

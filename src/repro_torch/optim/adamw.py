@@ -34,6 +34,10 @@ class AdamW:
     warmup_steps: int = 100
     total_steps: int = 10000
     min_lr_frac: float = 0.1
+    # cast gradients to this dtype (a config dtype name, e.g. "bfloat16")
+    # and back to fp32 before the clip, as the JAX package does ahead of
+    # its cross-pod reduction
+    grad_dtype: str | None = None
 
     def init(self, params) -> AdamWState:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -51,7 +55,11 @@ class AdamW:
         return self.lr * warm * frac
 
     def update(self, grads, state: AdamWState, params):
-        g_leaves = [g.to(torch.float32) for g in pytree.tree_leaves(grads)]
+        g_leaves = pytree.tree_leaves(grads)
+        if self.grad_dtype:
+            gd = getattr(torch, self.grad_dtype)
+            g_leaves = [g.to(gd) for g in g_leaves]
+        g_leaves = [g.to(torch.float32) for g in g_leaves]
         # global-norm clip
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g_leaves))
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)

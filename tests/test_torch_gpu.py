@@ -27,7 +27,10 @@ with its copies made on the card, the spill peak below the device
 tier's, the planner's spill fallback, the adaptive ring and the eager
 implicit route on spill/disk/host); and ``ODEEngine`` (captured == eager
 on the device tier and the adaptive path, spill and disk == the device
-tier, bitwise).
+tier, bitwise); LM training (the RWKV6 backward kernel against
+``rwkv6_plain_vjp`` within ``RWKV6_BWD_TOL`` and its wrong answers beyond
+10x, bitwise run to run; the depth remat policies' gradients bitwise
+equal; a reduced RWKV6 train step against the port on the CPU).
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -1347,3 +1350,102 @@ def test_checkpoint_snapshot_survives_the_sources_going(cuda, tmp_path):
                                     "step": 0})
     assert step == 1 and got["step"] == 3 and got["w"].is_cuda
     assert torch.equal(got["w"].cpu(), want) and junk
+
+
+# ---------------------------------------------------------------------------
+# LM training: the RWKV6 backward kernel, the depth remat policies, a step
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(b, s, h, dh, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    r, k, v, logw, u = rwkv6_inputs(b, h, s, dh, gen, layout="bshd")
+    dy = torch.randn(r.shape, generator=gen)
+    return [t.to(device) for t in (r.to(dtype), k.to(dtype), v.to(dtype),
+                                   logw, u, dy)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh,chunk", [(2, 300, 4, 16, 64),
+                                            (1, 70, 3, 16, 16),
+                                            (1, 130, 2, 32, 32),
+                                            (2, 257, 2, 64, 64)])
+def test_rwkv6_backward_kernel_vs_plain_vjp(cuda, dtype, b, s, h, dh, chunk):
+    from repro_torch.kernels.ref import rwkv6_plain_vjp
+    from repro_torch.kernels.rwkv6_cases import (RWKV6_BWD_WRONG,
+                                                 rwkv6_bwd_ratio,
+                                                 rwkv6_vjp_chunked)
+    a = _bwd_inputs(b, s, h, dh, dtype, cuda)
+    before = ops.rwkv6_bwd_launches
+    got = ops.rwkv6_chunked_bwd_fp32(*a, chunk=chunk)
+    again = ops.rwkv6_chunked_bwd_fp32(*a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_bwd_launches == before + 2
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again))
+    assert [g.dtype for g in got] == [t.dtype for t in a[:5]]
+    torch.use_deterministic_algorithms(False)  # rwkv6_plain's cumsum
+    plain = rwkv6_plain_vjp(*a, chunk=chunk)
+    assert rwkv6_bwd_ratio(got, plain) <= 1
+    for w in RWKV6_BWD_WRONG:
+        wrong = rwkv6_vjp_chunked(*a, chunk=chunk, wrong=w)
+        assert rwkv6_bwd_ratio(wrong, plain) > 10, w
+
+
+def test_rwkv6_backward_kernel_refuses(cuda):
+    a = _bwd_inputs(1, 64, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_chunked_bwd_fp32(*a, chunk=48)
+    with pytest.raises(ValueError, match="dy"):
+        ops.rwkv6_chunked_bwd_fp32(*a[:5], a[5].double(), chunk=64)
+
+
+def _train_case(arch, impl, s, device):
+    cfg = reduced(get_arch(arch), n_layers=2, attn_impl=impl)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, s)).astype(np.int32))
+    return cfg, params, {"tokens": toks, "targets": toks}
+
+
+@pytest.mark.parametrize("arch,impl,s", [("tinyllama-1.1b", "chunked", 600),
+                                         ("rwkv6-7b", "naive", 300)])
+def test_remat_policies_bitwise_on_the_card(cuda, arch, impl, s):
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch.steps import value_and_grad
+    cfg, params, batch = _train_case(arch, impl, s, cuda)
+    params = pytree.tree_map(lambda t: t.to(cuda), params)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    runs = []
+    for remat, ncheck in (("none", None), ("full", None), ("sqrt", None),
+                          ("revolve", 1)):
+        loss, _, g = value_and_grad(
+            dataclasses.replace(cfg, remat=remat, ncheck=ncheck), params,
+            batch)
+        runs.append([loss] + pytree.tree_leaves(g))
+    for leaves in runs[1:]:
+        assert all(torch.equal(_bits(x), _bits(y))
+                   for x, y in zip(leaves, runs[0]))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg, params, batch = _train_case("rwkv6-7b", "naive", 300, cuda)
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    _, s_cpu, m_cpu = step(params, opt.init(params), batch, 0)
+    card_p = pytree.tree_map(lambda t: t.to(cuda), params)
+    ops.reset_counts()
+    _, s_card, m_card = step(card_p, opt.init(card_p),
+                             {k: v.to(cuda) for k, v in batch.items()}, 0)
+    torch.cuda.synchronize()
+    assert (ops.rwkv6_launches, ops.rwkv6_bwd_launches) == \
+        lm.expected_rwkv6_train_calls(cfg, 300, cfg.remat)
+    assert (ops.rwkv6_plain_calls, ops.rwkv6_bwd_plain_calls) == (0, 0)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-4 * abs(float(m_cpu[k]))
+    for a, c in zip(pytree.tree_leaves(s_card.m), pytree.tree_leaves(s_cpu.m)):
+        assert float((a.cpu() - c).abs().max()) <= \
+            1e-3 * float(c.abs().max())
