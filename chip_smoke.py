@@ -3617,11 +3617,16 @@ def ode_serving_phase(card, dev, theta, x):
 # (B, H, S, dh) of RWKV6-7B's training step below: batch 4 x 2048 tokens
 TRAIN_BWD_SHAPE = (4, 64, 2048, 64)
 # the backward kernel's smaller cases: (B, H, S, dh, chunk, dtype); dh 16 is
-# the reduced configs' head, the S not a multiple of the chunk
+# the reduced configs' head, the S not a multiple of the chunk but in the
+# case of S of exactly one chunk, and dh 32 at chunk 16 the smallest pair
 TRAIN_BWD_CASES = [(2, 4, 300, 16, 64, "float32"),
                    (2, 4, 300, 16, 64, "bfloat16"),
                    (1, 3, 100, 32, 32, "float32"),
-                   (2, 2, 2047, 64, 64, "float32")]
+                   (2, 2, 2047, 64, 64, "float32"),
+                   (1, 4, 64, 64, 64, "float32"),
+                   (1, 3, 70, 32, 16, "bfloat16")]
+# the backward's three kernels (csrc/rwkv6_scan_bwd.cuh), by their names
+RWKV6_BWD_KERNELS = ("chunk_products", "state_scans", "chunk_grads")
 # card against the CPU port: reduced configs (2 layers), fp32, TF32 off:
 # (arch, attention impl, batch, sequence); TinyLlama's 600 positions are two
 # 512-row blocks of the chunked custom backward, the second ragged; RWKV6's
@@ -3657,9 +3662,41 @@ def nondeterministic():
         torch.use_deterministic_algorithms(det)
 
 
+def bwd_build_report():
+    """{kernel: {entry: {registers, spill_stores, spill_loads}}} of the
+    backward's kernels from ptxas's log of ``csrc/rwkv6_scan_bwd.cu``
+    (entries by their template arguments, e.g. ``__nv_bfloat16, 64, 64``)."""
+    import re
+    from repro_torch.kernels import _build
+    out, entry = {}, None
+    for line in (_build.build_dir() / "rwkv6_scan_bwd.log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '_ZN9rwkv6_bwd\d+(\w+?)I"
+                      r"(\w*?)Li(\d+)E(?:Li(\d+)E)?", line)
+        if m:
+            kind = "__nv_bfloat16" if "bfloat16" in m.group(2) else (
+                "float" if m.group(2) == "f" else "")
+            args = ", ".join(x for x in (kind, m.group(3), m.group(4)) if x)
+            entry = out.setdefault(m.group(1), {}).setdefault(args, {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry.update(spill_stores=int(m.group(1)),
+                         spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return out
+
+
 def rwkv6_bwd_phase(card, dev):
-    """(a) The RWKV6 backward kernel against ``rwkv6_plain_vjp``, its wrong
-    answers, its bits run to run, and its times at the training shape."""
+    """(a) The RWKV6 backward kernels against ``rwkv6_plain_vjp``, their
+    wrong answers, their bits run to run, and their times at the training
+    shape: each of the call's three kernels from the profiler's records,
+    with its registers and spills (ptxas) and resident blocks an SM."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import rwkv6_plain_vjp
@@ -3672,6 +3709,7 @@ def rwkv6_bwd_phase(card, dev):
     cases = [(*c[:5], getattr(torch, c[5])) for c in TRAIN_BWD_CASES]
     cases.append((b, h, s, dh, 64, torch.bfloat16))
     ratio, worst, margins = 0.0, 0.0, {w: math.inf for w in RWKV6_BWD_WRONG}
+    ratios = {}
     for cb, ch, cs, cdh, c, dtype in cases:
         a = rwkv6_bshd(cb, cs, ch, cdh, dtype, gen)
         dy = torch.randn(a[0].shape, generator=gen, device=dev)
@@ -3687,9 +3725,13 @@ def rwkv6_bwd_phase(card, dev):
             plain = rwkv6_plain_vjp(*a, dy, chunk=c)
             r = rwkv6_bwd_ratio(got, plain)
             for w in RWKV6_BWD_WRONG:
-                margins[w] = min(margins[w], rwkv6_bwd_ratio(
-                    rwkv6_vjp_chunked(*a, dy, chunk=c, wrong=w), plain))
+                # with one chunk no state gradient is carried: that
+                # variant is the right answer there
+                if cs > c or w != "the later chunks' state gradient dropped":
+                    margins[w] = min(margins[w], rwkv6_bwd_ratio(
+                        rwkv6_vjp_chunked(*a, dy, chunk=c, wrong=w), plain))
         ratio = max(ratio, r)
+        ratios[str((cb, ch, cs, cdh, c, str(dtype)[6:]))] = r
         worst = max(worst, max(max_abs(x, y) for x, y in zip(got, plain)))
         check(r <= 1.0, f"the RWKV6 backward kernel exceeds its limits "
               f"{RWKV6_BWD_TOL} at {(cb, ch, cs, cdh, c, str(dtype))}: "
@@ -3699,21 +3741,22 @@ def rwkv6_bwd_phase(card, dev):
           f"a wrong RWKV6 gradient within {WRONG_MARGIN}x of the limits: "
           f"{margins}")
     print(f"phase 19a rwkv6_chunked_bwd_fp32 vs rwkv6_plain_vjp over "
-          f"{len(cases)} cases (dh 16/32/64, chunk 32/64, ragged S, fp32 and "
-          f"bf16 r/k/v, the training shape {TRAIN_BWD_SHAPE} last): worst "
-          f"ratio to the limit {ratio:.4f} (limits {RWKV6_BWD_TOL}), "
-          f"max|diff| {worst:.3e}; BITWISE on a second call; wrong answers' "
-          f"margins {margins} {card}", flush=True)
+          f"{len(cases)} cases (dh 16/32/64, chunk 16/32/64, ragged S and S "
+          f"of one chunk, fp32 and bf16 r/k/v, the training shape "
+          f"{TRAIN_BWD_SHAPE} last): worst ratio to the limit {ratio:.4f} "
+          f"(limits {RWKV6_BWD_TOL}), max|diff| {worst:.3e}; BITWISE on a "
+          f"second call; wrong answers' margins {margins} {card}",
+          flush=True)
+    print("  ratios by case: " + json.dumps(ratios), flush=True)
 
     c = 64
     a = rwkv6_bshd(b, s, h, dh, torch.bfloat16, gen)
     dy = torch.randn(a[0].shape, generator=gen, device=dev)
     n = a[0].numel()
     chunks = b * h * (-(-s // c))
-    # per chunk: the state recomputation k_out^T v, dq_in, dk_out, the two
-    # products of dv and q_in^T dy (C dh^2 MACs each); A, dA, dq_mid,
-    # dk_mid and A^T dy over the strictly lower triangle (C(C-1)/2 dh MACs
-    # each)
+    # per chunk: k_out^T v, q_in^T dy, dq_in, dk_out and k_out dS (C dh^2
+    # MACs each); A, dA, dq_mid, dk_mid and A^T dy over the strictly lower
+    # triangle (C(C-1)/2 dh MACs each)
     flops = chunks * (10 * c * dh * dh + 5 * c * (c - 1) * dh)
     # read bf16 r, k, v and fp32 logw, dy; write bf16 dr, dk, dv and fp32
     # dlogw; u read and du written once
@@ -3731,21 +3774,63 @@ def rwkv6_bwd_phase(card, dev):
                flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                ops_ms_fp32=ops_ms, bytes_ms=bytes_ms,
+               workspace_bytes=ops.rwkv6_bwd_workspace_bytes(b, s, h, dh, c),
                call_ms=time_ms(kern, 10, 2), plain_call_ms=time_ms(plain, 2, 1))
-    row["ms"] = device_ms(kern, iters=5)
+    kern()
+    iters = 5
+    recs, _ = device_kernels(kern, iters)
+    # the call's kernels: the backward's three, du's sum (one torch
+    # reduction) and, under deterministic algorithms (phase 19's setting),
+    # the fills torch.empty makes of the outputs and the workspace
+    by_name = {}
+    for name, us, _, _ in recs:
+        key = next((k for k in RWKV6_BWD_KERNELS if f"rwkv6_bwd::{k}" in name),
+                   "fill" if "fill" in name.lower() else
+                   "du_sum" if "reduce" in name else "other")
+        by_name[key] = by_name.get(key, 0.0) + us / iters / 1e3
+    row["launch_ms"] = by_name
+    row["launches_per_call"] = sum(1 for n_, *_ in recs
+                                   if "rwkv6_bwd::" in n_) // iters
+    check(row["launches_per_call"] == len(RWKV6_BWD_KERNELS)
+          and all(k in by_name for k in RWKV6_BWD_KERNELS),
+          f"the backward's kernels a call: {row['launches_per_call']}, "
+          f"{sorted(by_name)}")
+    # ms: every kernel of the call, as device_ms counts every other row
+    row["ms"] = sum(by_name.values())
+    row["fill_ms"] = by_name.get("fill", 0.0)
+    row["kernels_ms_no_fills"] = row["ms"] - row["fill_ms"]
     row["plain_ms"] = device_ms(plain, iters=2)
     row["x_bound"] = row["ms"] / row["bound_ms"]
+    # blocks an SM and shared bytes from the card, registers and spills
+    # from ptxas's log
+    info = ops.rwkv6_bwd_kernel_info(torch.bfloat16, dh, c)
+    built = bwd_build_report()
+    for k in RWKV6_BWD_KERNELS:
+        args = "64" if k == "state_scans" else "__nv_bfloat16, 64, 64"
+        info[k].update(built[k][args])
+    row["kernels"] = info
     print(f"  rwkv6_chunked_bwd_fp32 {(b, s, h, dh)} chunk {c}, bf16 r/k/v: "
-          f"kernel {row['ms']:.4f} ms (call {row['call_ms']:.4f})  plain "
-          f"{row['plain_ms']:.4f} ms (call {row['plain_call_ms']:.4f})  bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} FLOP at "
+          f"kernels {row['ms']:.4f} ms a call (without the fills of "
+          f"torch.empty {row['kernels_ms_no_fills']:.4f} ms; call "
+          f"{row['call_ms']:.4f}), "
+          f"{row['launches_per_call']} launches a call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_name.items())
+          + f" ms; plain {row['plain_ms']:.4f} ms (call "
+          f"{row['plain_call_ms']:.4f}); bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {flops:.4e} FLOP at "
           f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s = {ops_ms:.4f} ms; {nbytes} "
           f"B at 3.35 TB/s = {bytes_ms:.4f} ms), {row['x_bound']:.2f}x the "
-          f"bound; library: none {card}", flush=True)
+          f"bound; workspace {row['workspace_bytes']} B; library: none "
+          f"{card}", flush=True)
+    for k, v in info.items():
+        print(f"  {k}: {v['registers']} registers, spill stores "
+              f"{v['spill_stores']} B / loads {v['spill_loads']} B (ptxas), "
+              f"{v['blocks_per_sm']} blocks an SM, {v['smem_bytes']} B "
+              f"shared {card}", flush=True)
     del a, dy
     gc_collect()
-    return dict(worst=worst, ratio=ratio, margins=margins, row=row,
-                cases=len(cases))
+    return dict(worst=worst, ratio=ratio, ratios=ratios, margins=margins,
+                row=row, cases=len(cases))
 
 
 def train_agreement_phase(card, dev):
@@ -3959,14 +4044,15 @@ def lm_training_phase(card, dev):
                                              cfg.remat)
     ops.reset_counts()
     rw = run(cfg, TRAIN_RWKV)
+    rw["bwd_workspace_bytes"] = ops.rwkv6_bwd_workspace_bytes(
+        TRAIN_RWKV["batch"], TRAIN_RWKV["seq"], cfg.n_heads, cfg.dh)
     launches = (ops.rwkv6_launches, ops.rwkv6_bwd_launches)
     plain = (ops.rwkv6_plain_calls, ops.rwkv6_bwd_plain_calls)
     expected = (fwd * TRAIN_RWKV["steps"], bwd * TRAIN_RWKV["steps"])
     check(launches == expected and launches[1] > 0 and plain == (0, 0),
           f"RWKV6-7B training: RWKV6 (forward, backward) launches "
           f"{launches}, expected {expected}; plain calls {plain}")
-    rw["trace"] = traced_train_step(cfg, TRAIN_RWKV, "rwkv6_chunked", card,
-                                    dev)
+    rw["trace"] = traced_train_step(cfg, TRAIN_RWKV, "rwkv6_", card, dev)
     for i, (ms, tps) in enumerate(zip(rw["step_ms"], rw["tok_per_s"])):
         print(f"phase 19d RWKV6-7B (4 layers) train step {i}: loss "
               f"{rw['losses'][i]:.6f}  {ms:.1f} ms  {tps:.1f} tokens/s {card}")
@@ -3975,8 +4061,9 @@ def lm_training_phase(card, dev):
           f" x {TRAIN_RWKV['seq']}, remat sqrt: RWKV6 launches (forward, "
           f"backward) {launches} (expected {expected}); peak allocated "
           f"{rw['peak_bytes']} B over the first step (params "
-          f"{rw['param_bytes']} B, moments {rw['moment_bytes']} B) {card}",
-          flush=True)
+          f"{rw['param_bytes']} B, moments {rw['moment_bytes']} B; the "
+          f"RWKV6 backward's workspace {rw['bwd_workspace_bytes']} B a "
+          f"call) {card}", flush=True)
     return dict(tinyllama=dict(clean, faulted_losses_bitwise=True),
                 rwkv6=dict(rw, launches=launches, expected=expected))
 
@@ -4455,6 +4542,14 @@ def main():
         "wrong_answer_margins": training["kernel"]["margins"],
         "ms": training["kernel"]["row"]["ms"],
         "kernel_ms": training["kernel"]["row"]["ms"],
+        "launch_ms": training["kernel"]["row"]["launch_ms"],
+        "fill_ms": training["kernel"]["row"]["fill_ms"],
+        "kernels_ms_no_fills":
+            training["kernel"]["row"]["kernels_ms_no_fills"],
+        "launches_per_call": training["kernel"]["row"]["launches_per_call"],
+        "kernels": training["kernel"]["row"]["kernels"],
+        "workspace_bytes": training["kernel"]["row"]["workspace_bytes"],
+        "limit_ratios": training["kernel"]["ratios"],
         "call_ms": training["kernel"]["row"]["call_ms"],
         "plain_ms": training["kernel"]["row"]["plain_ms"],
         "plain_call_ms": training["kernel"]["row"]["plain_call_ms"],

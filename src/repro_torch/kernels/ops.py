@@ -611,6 +611,34 @@ def _rwkv6_bwd_kernel(dtype):
     return fn
 
 
+def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its base and its batch, sequence and head strides
+    are 16-byte multiples (``_check_cp_async``'s rule), else a contiguous
+    copy, which is: the backward's kernels copy every operand 16 bytes at
+    a time (the model path's operands are aligned views, never copied)."""
+    size = t.element_size()
+    if t.data_ptr() % CP_ASYNC_ALIGN == 0 and all(
+            n == 1 or st * size % CP_ASYNC_ALIGN == 0
+            for st, n in zip(t.stride()[:3], t.shape[:3])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _rwkv6_bwd_workspace_floats(chunks: int, dh: int) -> tuple[int, int]:
+    """fp32 elements of the backward's scratch for ``chunks`` (b, h, chunk)
+    triples: the kernels' workspace (the state entering and the state
+    gradient leaving every chunk, 2 dh^2, and e^{total}, dh) and the
+    chunks' parts of du (dh each)."""
+    return chunks * (2 * dh * dh + dh), chunks * dh
+
+
+def rwkv6_bwd_workspace_bytes(b: int, s: int, h: int, dh: int,
+                              chunk: int = 64) -> int:
+    """Bytes of the scratch ``rwkv6_chunked_bwd_fp32`` allocates on the
+    card a call (``_rwkv6_bwd_workspace_floats``, one fp32 buffer)."""
+    return 4 * sum(_rwkv6_bwd_workspace_floats(b * h * -(-s // chunk), dh))
+
+
 def rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, *, chunk: int = 64):
     """The gradient of ``rwkv6_chunked_fp32`` (out only: the final state
     gets none) with respect to its operands: r/k/v (B,S,H,dh) of one dtype
@@ -620,10 +648,15 @@ def rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, *, chunk: int = 64):
 
     A CUDA tensor launches ``csrc/rwkv6_scan_bwd.cuh`` (dh in
     ``RWKV6_BWD_HEAD_DIMS``, chunk in ``RWKV6_BWD_CHUNKS``) on the views
-    in place, or raises; its workspace holds the state entering every
-    chunk (B H n_chunks dh^2 fp32), and ``du`` is the sum over the batch of
-    the kernel's per-(b, h) parts.  A CPU tensor takes ``rwkv6_plain_vjp``
-    (autograd of ``rwkv6_plain`` on upcast, zero-padded copies)."""
+    in place, or raises: three kernels on the current stream, one call
+    (counted once in ``rwkv6_bwd_launches``): the products of every
+    chunk, the two recurrences over the chunks, the gradients of every
+    chunk.  Its workspace (``rwkv6_bwd_workspace_bytes``) holds the state
+    entering and the state gradient leaving every chunk; ``du`` is one
+    torch sum of the chunks' parts.  An operand whose base or strides are
+    not 16-byte multiples is copied first.  A CPU tensor takes
+    ``rwkv6_plain_vjp`` (autograd of ``rwkv6_plain`` on upcast,
+    zero-padded copies)."""
     global rwkv6_bwd_launches, rwkv6_bwd_plain_calls
     name = "rwkv6_chunked_bwd_fp32"
     chunk = int(chunk)
@@ -645,13 +678,15 @@ def rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, *, chunk: int = 64):
         raise ValueError(f"{name}: empty batch, heads or sequence")
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
+    r, k, v, logw, dy = (_cp_async_ready(t) for t in (r, k, v, logw, dy))
     u = u.contiguous()
     nc = -(-s // chunk)
     dev = r.device
     grads = [torch.empty(t.shape, dtype=t.dtype, device=dev)
              for t in (r, k, v, logw)]
-    du_part = torch.empty((b * h, dh), dtype=torch.float32, device=dev)
-    ws = torch.empty((b * h, nc, dh, dh), dtype=torch.float32, device=dev)
+    n_ws, n_du = _rwkv6_bwd_workspace_floats(b * h * nc, dh)
+    scratch = torch.empty(n_ws + n_du, dtype=torch.float32, device=dev)
+    ws, du_part = scratch[:n_ws], scratch[n_ws:]
 
     def strides(t):
         return (t.stride(0), t.stride(1), t.stride(2))
@@ -669,4 +704,23 @@ def rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, *, chunk: int = 64):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     rwkv6_bwd_launches += 1
-    return dr, dk, dv, dlogw, du_part.view(b, h, dh).sum(0)
+    return dr, dk, dv, dlogw, du_part.view(b, h, nc, dh).sum((0, 2))
+
+
+def rwkv6_bwd_kernel_info(dtype, dh: int, chunk: int) -> dict:
+    """What the card reports for the backward's three kernels at (r/k/v
+    ``dtype``, ``dh``, ``chunk``): resident blocks an SM and dynamic shared
+    bytes (registers and spills are in ptxas's log of the build).  Builds
+    the kernels; needs a card."""
+    from repro_torch.kernels import _build
+    fn = _build.load("rwkv6_scan_bwd").repro_rwkv6_chunked_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(int(dtype == torch.bfloat16), dh, chunk, out)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_bwd_kernel_info: CUDA error {err}")
+    names = ("chunk_products", "state_scans", "chunk_grads")
+    return {n: dict(blocks_per_sm=out[i], smem_bytes=(out[3], 0, out[4])[i])
+            for i, n in enumerate(names)}

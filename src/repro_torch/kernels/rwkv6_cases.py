@@ -20,16 +20,18 @@ Limits, by output dtype name:
   each gradient's dtype name, the same for dr, dk, dv, dlogw and du.
   fp32: both compute in fp32 from the same inputs but sum in other orders
   and along other paths: the plain version differentiates through the
-  cumsum and through ``mid`` (two terms that cancel), the kernel treats
-  ``mid`` as a constant and scans W and Z.  The longest sums are dlogw's:
-  a reverse and a forward scan over C rows of elements that are each sums
-  of about C + dh products, so n = 2C + 2(C + dh) = 384 terms at dh = C =
-  64, and its terms reach a few times max|dlogw| (the mid terms cancel);
-  n 2**-24 times 4 max|out| is 9e-5, so atol 2**-12 of max|out|, with
-  rtol 2**-14 for the elements near the top.  (Measured on the CPU with
-  the kernel's source built for the host: at most 7e-6 of max|out|.)  The
-  state gradient, carried over every later chunk, is decayed by
-  e^{total}: its terms do not grow with S.  bf16 (dr, dk, dv from bf16
+  cumsum and through ``mid`` (two terms that cancel), the kernels treat
+  ``mid`` as a constant and take dlogw from a suffix scan of r Pr, a
+  prefix scan of k Pk and one sum of dk_mid k_mid per channel.  The
+  longest sums are dlogw's: two scans over C rows and a sum over C rows
+  of elements that are each sums of about C + dh products, plus dh terms
+  of sum_e S0 dS, so about n = 3(C + dh) + dh = 448 terms at dh = C = 64,
+  and its terms reach a few times max|dlogw| (the mid terms cancel);
+  n 2**-24 times 4 max|out| is 1.1e-4, so atol 2**-12 of max|out|, with
+  rtol 2**-14 for the elements near the top.  (Measured on the card: at
+  most 0.02 of that limit in fp32.)  The state and its gradient, carried
+  over the chunks, are decayed by e^{total}: their terms do not grow
+  with S.  bf16 (dr, dk, dv from bf16
   r, k, v): both round one fp32 value to bf16 once, so one bf16 ulp, at
   most 2**-7 of the element, plus 1e-3 of max|out| near zero, the
   forward's bf16 limit.  The wrong gradients of ``RWKV6_BWD_WRONG`` move
@@ -89,18 +91,22 @@ def rwkv6_bwd_ratio(grads, ref) -> float:
 
 def rwkv6_vjp_chunked(r, k, v, logw, u, dy, *, chunk: int = 64,
                       wrong: str | None = None):
-    """The backward kernel's algorithm (``csrc/rwkv6_scan_bwd.cuh``) in
-    plain torch, chunk by chunk: the states entering every chunk from a
-    forward sweep, then a reverse sweep carrying dS, with ``mid`` held
-    constant and dlogw from the reverse and forward scans of W and Z.
-    Operands as ``ops.rwkv6_chunked_bwd_fp32`` takes them ((B,S,H,dh), u
-    (H,dh)); it computes in their common float dtype (upcast to fp32 from
-    bf16) and returns (dr, dk, dv, dlogw, du) unpadded.  The tests hold it
-    against ``rwkv6_plain_vjp`` in fp64, which checks the derivation; with
-    ``wrong`` one of ``RWKV6_BWD_WRONG`` it gives a deliberately wrong
-    gradient: the bonus diagonal's terms dropped, dlogw without the
-    reverse cumulative sum of W, or no state gradient carried from a chunk
-    to the one before it."""
+    """The backward kernels' algorithm (``csrc/rwkv6_scan_bwd.cuh``) in
+    plain torch, in their three phases, each over every chunk at once: (A)
+    the products of each chunk (k_out^T v, q_in^T dy, e^{total}); (B) the
+    two recurrences over the chunks, which give the state entering each
+    chunk and the gradient of the state leaving it; (C) the gradients of
+    each chunk from those, with ``mid`` held constant and dlogw from the
+    exclusive suffix sums of r Pr, the exclusive prefix sums of k Pk and
+    one sum of dk_mid k_mid per channel (cp is the exclusive cumsum, as the
+    kernels take it).  Operands as ``ops.rwkv6_chunked_bwd_fp32`` takes
+    them ((B,S,H,dh), u (H,dh)); it computes in their common float dtype
+    (upcast to fp32 from bf16) and returns (dr, dk, dv, dlogw, du)
+    unpadded.  The tests hold it against ``rwkv6_plain_vjp`` in fp64, which
+    checks the derivation; with ``wrong`` one of ``RWKV6_BWD_WRONG`` it
+    gives a deliberately wrong gradient: the bonus diagonal's terms
+    dropped, dlogw without the suffix sums of r Pr, or no state gradient
+    carried from a chunk to the one before it."""
     if wrong not in (None,) + RWKV6_BWD_WRONG:
         raise ValueError(f"unknown wrong answer {wrong!r}")
     ft = torch.promote_types(r.dtype, torch.float32) \
@@ -112,57 +118,66 @@ def rwkv6_vjp_chunked(r, k, v, logw, u, dy, *, chunk: int = 64,
         t = t.to(ft).transpose(1, 2)
         return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
-    rp, kp, vp, lp, yp = (bhsd(t) for t in (r, k, v, logw, dy))
-    uf = u.to(ft)[None, :, None, :]
-    b, h, sp, dh = rp.shape
+    b, _, h, dh = r.shape
     c = chunk
+    nc = (s + pad) // c
+    # (B, H, n_chunks, C, dh)
+    rr, kk, vv, ll, yy = (bhsd(t).reshape(b, h, nc, c, dh)
+                          for t in (r, k, v, logw, dy))
+    uf = u.to(ft)[None, :, None, None, :]
     lower = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
-    sl = [slice(i, i + c) for i in range(0, sp, c)]
-    S = torch.zeros((b, h, dh, dh), dtype=ft, device=r.device)
-    states = []
-    for ix in sl:
-        states.append(S)
-        cum = lp[:, :, ix].cumsum(2)
-        total = cum[:, :, -1:]
-        k_out = kp[:, :, ix] * torch.exp(total - cum)
-        S = torch.exp(total).transpose(-1, -2) * S \
-            + k_out.transpose(-1, -2) @ vp[:, :, ix]
-    grads = [torch.zeros_like(rp) for _ in range(4)]
-    du = torch.zeros((h, dh), dtype=ft, device=r.device)
-    dS = torch.zeros_like(S)
-    for ix, S0 in zip(reversed(sl), reversed(states)):
-        rr, kk, vv, ll, yy = (t[:, :, ix] for t in (rp, kp, vp, lp, yp))
-        cum = ll.cumsum(2)
-        cp = cum - ll
-        total = cum[:, :, -1:]
-        mid = cum[:, :, c // 2][:, :, None]
-        q_in, q_mid = rr * torch.exp(cp), rr * torch.exp(cp - mid)
-        k_mid, k_out = kk * torch.exp(mid - cum), kk * torch.exp(total - cum)
-        A = torch.where(lower, q_mid @ k_mid.transpose(-1, -2), 0.0)
-        dA = torch.where(lower, yy @ vv.transpose(-1, -2), 0.0)
-        bonus = 0.0 if wrong == "bonus dropped" else 1.0
-        diag = bonus * (rr * uf * kk).sum(-1, keepdim=True)
-        ddiag = bonus * (yy * vv).sum(-1, keepdim=True)
-        dq_in = yy @ S0.transpose(-1, -2)
-        dq_mid, dk_mid = dA @ k_mid, dA.transpose(-1, -2) @ q_mid
-        dk_out = vv @ dS.transpose(-1, -2)
-        grads[0][:, :, ix] = dq_in * torch.exp(cp) \
-            + dq_mid * torch.exp(cp - mid) + ddiag * uf * kk
-        grads[1][:, :, ix] = dk_mid * torch.exp(mid - cum) \
-            + dk_out * torch.exp(total - cum) + ddiag * uf * rr
-        grads[2][:, :, ix] = k_out @ dS + A.transpose(-1, -2) @ yy \
-            + diag * yy
-        Y = dk_mid * k_mid
-        W = dq_in * q_in + dq_mid * q_mid - Y
-        Z = dk_out * k_out
-        after = W.flip(2).cumsum(2).flip(2) - W          # sum_{t>s} W[t]
-        if wrong == "dlogw without the reverse cumsum":
-            after = torch.zeros_like(W)
-        before = Z.cumsum(2) - Z                         # sum_{t<s} Z[t]
-        eS = torch.exp(total[:, :, 0]) * (S0 * dS).sum(-1)
-        grads[3][:, :, ix] = after - Y + before + eS[:, :, None]
-        du = du + (ddiag * rr * kk).sum((0, 2))
-        if wrong != "the later chunks' state gradient dropped":
-            dS = torch.exp(total).transpose(-1, -2) * dS \
-                + q_in.transpose(-1, -2) @ yy
-    return tuple(g.transpose(1, 2)[:, :s] for g in grads) + (du,)
+
+    def tr(t):
+        return t.transpose(-1, -2)
+
+    # (A) the products of each chunk
+    cum = ll.cumsum(3)
+    cp = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], 3)
+    total = cum[..., -1:, :]
+    k_out = kk * torch.exp(total - cum)
+    q_in = rr * torch.exp(cp)
+    kv, qy = tr(k_out) @ vv, tr(q_in) @ yy          # (B, H, nc, dh, dh)
+    etot = torch.exp(total)[..., 0, :, None]        # e^{total[d]}, over e
+
+    # (B) the recurrences over the chunks: the state entering chunk i, the
+    # gradient of the state leaving it
+    S0, dS = torch.zeros_like(kv), torch.zeros_like(qy)
+    S = torch.zeros_like(kv[:, :, 0])
+    for i in range(nc - 1):
+        S = etot[:, :, i] * S + kv[:, :, i]
+        S0[:, :, i + 1] = S
+    if wrong != "the later chunks' state gradient dropped":
+        D = torch.zeros_like(S)
+        for i in range(nc - 1, 0, -1):
+            D = etot[:, :, i] * D + qy[:, :, i]
+            dS[:, :, i - 1] = D
+
+    # (C) the gradients of each chunk
+    mid = cum[..., c // 2:c // 2 + 1, :]
+    q_mid, k_mid = rr * torch.exp(cp - mid), kk * torch.exp(mid - cum)
+    A = torch.where(lower, q_mid @ tr(k_mid), 0.0)
+    dA = torch.where(lower, yy @ tr(vv), 0.0)
+    bonus = 0.0 if wrong == "bonus dropped" else 1.0
+    diag = bonus * (rr * uf * kk).sum(-1, keepdim=True)
+    ddiag = bonus * (yy * vv).sum(-1, keepdim=True)
+    dq_in, dk_out = yy @ tr(S0), vv @ tr(dS)
+    dq_mid, dk_mid = dA @ k_mid, tr(dA) @ q_mid
+    Pr = dq_in * torch.exp(cp) + dq_mid * torch.exp(cp - mid)
+    Pk = dk_mid * torch.exp(mid - cum) + dk_out * torch.exp(total - cum)
+    dr = Pr + ddiag * uf * kk
+    dk = Pk + ddiag * uf * rr
+    dv = k_out @ dS + tr(A) @ yy + diag * yy
+    Wr, Kk = rr * Pr, kk * Pk
+    after = Wr.flip(3).cumsum(3).flip(3) - Wr       # sum_{t>s} r Pr[t]
+    if wrong == "dlogw without the reverse cumsum":
+        after = torch.zeros_like(Wr)
+    before = Kk.cumsum(3) - Kk                      # sum_{t<s} k Pk[t]
+    const = etot[..., 0][..., None, :] * (S0 * dS).sum(-1)[..., None, :] \
+        - (dk_mid * k_mid).sum(3, keepdim=True)
+    dlogw = after + before + const
+    du = (ddiag * rr * kk).sum((0, 2, 3))
+
+    def unpad(g):
+        return g.reshape(b, h, nc * c, dh).transpose(1, 2)[:, :s]
+
+    return tuple(unpad(g) for g in (dr, dk, dv, dlogw)) + (du,)

@@ -1368,7 +1368,9 @@ def _bwd_inputs(b, s, h, dh, dtype, device, seed=0):
 @pytest.mark.parametrize("b,s,h,dh,chunk", [(2, 300, 4, 16, 64),
                                             (1, 70, 3, 16, 16),
                                             (1, 130, 2, 32, 32),
-                                            (2, 257, 2, 64, 64)])
+                                            (2, 257, 2, 64, 64),
+                                            (1, 64, 2, 64, 64),
+                                            (1, 70, 3, 32, 16)])
 def test_rwkv6_backward_kernel_vs_plain_vjp(cuda, dtype, b, s, h, dh, chunk):
     from repro_torch.kernels.ref import rwkv6_plain_vjp
     from repro_torch.kernels.rwkv6_cases import (RWKV6_BWD_WRONG,
@@ -1386,8 +1388,45 @@ def test_rwkv6_backward_kernel_vs_plain_vjp(cuda, dtype, b, s, h, dh, chunk):
     plain = rwkv6_plain_vjp(*a, chunk=chunk)
     assert rwkv6_bwd_ratio(got, plain) <= 1
     for w in RWKV6_BWD_WRONG:
+        if s <= chunk and w == "the later chunks' state gradient dropped":
+            continue  # one chunk carries no state gradient: not wrong there
         wrong = rwkv6_vjp_chunked(*a, chunk=chunk, wrong=w)
         assert rwkv6_bwd_ratio(wrong, plain) > 10, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_backward_kernel_on_unaligned_views(cuda, dtype):
+    """r/k/v one element off a 16-byte boundary and dy with rows of dh + 1
+    (both copied before the kernels' cp.async), logw an aligned strided
+    view of a wider buffer (passed in place with its strides)."""
+    from repro_torch.kernels.ref import rwkv6_plain_vjp
+    from repro_torch.kernels.rwkv6_cases import rwkv6_bwd_ratio
+    b, s, h, dh, chunk = 2, 130, 3, 32, 32
+    r, k, v, logw, u, dy = _bwd_inputs(b, s, h, dh, dtype, cuda)
+
+    def off_by_one(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    wide = torch.zeros(b, s, 2 * h, dh, device=cuda)
+    wide[:, :, h:] = logw
+    rows = torch.zeros(b, s, h, dh + 1, device=cuda)
+    rows[..., :dh] = dy
+    views = (off_by_one(r), off_by_one(k), off_by_one(v), wide[:, :, h:], u,
+             rows[..., :dh])
+    assert views[0].data_ptr() % ops.CP_ASYNC_ALIGN != 0
+    assert not views[3].is_contiguous() and not views[5].is_contiguous()
+    before = ops.rwkv6_bwd_launches
+    got = ops.rwkv6_chunked_bwd_fp32(*views, chunk=chunk)
+    want = ops.rwkv6_chunked_bwd_fp32(r, k, v, logw, u, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_bwd_launches == before + 2
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, want))
+    torch.use_deterministic_algorithms(False)  # rwkv6_plain's cumsum
+    plain = rwkv6_plain_vjp(r, k, v, logw, u, dy, chunk=chunk)
+    assert rwkv6_bwd_ratio(got, plain) <= 1
 
 
 def test_rwkv6_backward_kernel_refuses(cuda):

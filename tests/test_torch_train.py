@@ -28,9 +28,12 @@ Tolerances and their reasons:
 - RWKV6 (iii): ``rwkv6_plain_vjp`` in fp64 against ``jax.vjp`` of the
   JAX package's chunked core, which casts to fp32 inside (``resh``) even
   under x64, so within ``GRAD_TOL``; the kernel's algorithm
-  (``rwkv6_vjp_chunked``) against ``rwkv6_plain_vjp``, both fp64, within
-  1e-10 of max|g| (the ``mid`` renormaliser's terms cancel up to fp64
-  rounding).
+  (``rwkv6_vjp_chunked``, in the kernels' three phases) against
+  ``rwkv6_plain_vjp``, both fp64, within 1e-12 of max|g| (the ``mid``
+  renormaliser's terms cancel up to fp64 rounding; measured 4e-15), and
+  against the JAX package within ``GRAD_TOL``; in fp32 within
+  ``RWKV6_BWD_TOL`` of ``rwkv6_plain_vjp``, each wrong variant beyond it
+  10x.
 - The train steps (v): the port's step and the JAX package's jitted step
   (under an Auto-axes mesh, jax 0.9.0's default mesh being refused by the
   JAX attention's sharding pins) from the same params, batch and AdamW:
@@ -66,7 +69,8 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.depth_ode import checkpointed_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rwkv6_plain_vjp
-from repro_torch.kernels.rwkv6_cases import rwkv6_inputs, rwkv6_vjp_chunked
+from repro_torch.kernels.rwkv6_cases import (RWKV6_BWD_WRONG, rwkv6_bwd_ratio,
+                                             rwkv6_inputs, rwkv6_vjp_chunked)
 from repro_torch.launch.steps import make_train_step, value_and_grad
 from repro_torch.models import lm as tlm
 from repro_torch.nn import attention as tattn
@@ -259,21 +263,64 @@ def jax_rwkv6_core(monkeypatch):
     return core
 
 
-def test_rwkv6_plain_vjp_matches_jax_fp64(jax_rwkv6_core):
-    b, h, s, dh = 2, 2, 300, 16
+# (B, H, S, dh, chunk) of the backward's algorithm checks: every head dim
+# and chunk the kernels take, S ragged and S of exactly one chunk
+RWKV6_VJP_CASES = [
+    pytest.param(2, 2, 300, 16, 64, id="dh16-c64-ragged"),
+    pytest.param(1, 2, 100, 32, 32, id="dh32-c32-ragged"),
+    pytest.param(1, 2, 64, 64, 64, id="dh64-c64-one-chunk"),
+    pytest.param(1, 2, 70, 16, 16, id="dh16-c16-ragged"),
+    pytest.param(1, 1, 130, 64, 16, id="dh64-c16-ragged"),
+    pytest.param(1, 2, 32, 32, 32, id="dh32-c32-one-chunk")]
+
+
+def _rwkv6_vjp_matches(jax_core, b, h, s, dh, chunk):
+    """``rwkv6_plain_vjp`` against the JAX package's autodiff, and the
+    kernels' algorithm in its three phases (mid held constant, the scans
+    of r Pr and k Pk) against autograd of ``rwkv6_plain`` in fp64 and
+    against the JAX package."""
     rs = np.random.RandomState(0)
     ins = [t.double() for t in rwkv6_inputs(b, h, s, dh, rs, layout="bshd")]
     dy = torch.from_numpy(rs.randn(b, s, h, dh))
     with jax.enable_x64(True):
-        _, vjp = jax.vjp(jax_rwkv6_core, *(jnp.asarray(t.numpy())
-                                           for t in ins))
+        _, vjp = jax.vjp(jax_core, *(jnp.asarray(t.numpy()) for t in ins))
         jg = vjp(jnp.asarray(dy.numpy()))
-    tg = rwkv6_plain_vjp(*ins, dy, chunk=64)
+    tg = rwkv6_plain_vjp(*ins, dy, chunk=chunk)
     for t, j in zip(tg, jg):
         _normwise(t, j, GRAD_TOL)
-    # the kernel's algorithm (mid held constant, the scans of W and Z)
-    for t, p in zip(rwkv6_vjp_chunked(*ins, dy, chunk=64), tg):
-        _normwise(t, p, 1e-10)
+    chunked = rwkv6_vjp_chunked(*ins, dy, chunk=chunk)
+    for t, p, j in zip(chunked, tg, jg):
+        _normwise(t, p, 1e-12)
+        _normwise(t, j, GRAD_TOL)
+
+
+def test_rwkv6_plain_vjp_matches_jax_fp64(jax_rwkv6_core):
+    _rwkv6_vjp_matches(jax_rwkv6_core, *RWKV6_VJP_CASES[0].values)
+
+
+@pytest.mark.parametrize("b,h,s,dh,chunk", RWKV6_VJP_CASES[1:])
+def test_rwkv6_vjp_chunked_cases_match_jax_fp64(jax_rwkv6_core, b, h, s, dh,
+                                                chunk):
+    _rwkv6_vjp_matches(jax_rwkv6_core, b, h, s, dh, chunk)
+
+
+@pytest.mark.parametrize("wrong", RWKV6_BWD_WRONG,
+                         ids=["bonus", "suffix", "state"])
+@pytest.mark.parametrize("b,h,s,dh,chunk", [
+    c for c in RWKV6_VJP_CASES if c.values[2] > c.values[4]])
+def test_rwkv6_vjp_chunked_wrong_answers_exceed_the_limits(wrong, b, h, s,
+                                                           dh, chunk):
+    """In fp32, the algorithm is within ``RWKV6_BWD_TOL`` of autograd of
+    ``rwkv6_plain`` and each of its wrong variants exceeds the limits 10x
+    (on more than one chunk: with one, no state gradient is carried)."""
+    rs = np.random.RandomState(1)
+    ins = rwkv6_inputs(b, h, s, dh, rs, layout="bshd")
+    dy = torch.from_numpy(rs.randn(b, s, h, dh).astype(np.float32))
+    plain = rwkv6_plain_vjp(*ins, dy, chunk=chunk)
+    assert rwkv6_bwd_ratio(rwkv6_vjp_chunked(*ins, dy, chunk=chunk),
+                           plain) <= 1
+    assert rwkv6_bwd_ratio(rwkv6_vjp_chunked(*ins, dy, chunk=chunk,
+                                             wrong=wrong), plain) > 10
 
 
 def test_rwkv6_backward_wrapper_on_the_cpu():
