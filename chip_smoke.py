@@ -16,7 +16,8 @@ Phases (any failure exits non-zero, before the last line is printed):
    then timed beside its bound and its plain version;
 3. serving computation: CNF at the width of the POWER table
    (benchmarks/cnf_tables.py: dim 6, hidden (64, 64, 64)) on the paper's
-   batch of 10,000, dopri5, N_t = 10, pnode, fused, exact trace: the
+   batch of 10,000, dopri5, N_t = 5 (the table's 10, cut in depth),
+   pnode, fused, exact trace: the
    log-density (forward only) and the score d log p / dx (a full reverse
    sweep);
 4. training: the §5.1 ODE classifier at classifier_init's width (32
@@ -121,8 +122,8 @@ Phases (any failure exits non-zero, before the last line is printed):
    CN pnode gradient eager and captured (BITWISE equal), the
    convergence audit at c_true (lane 164 of this sample diverges, as in
    the JAX reference), 5 AdamW steps (no lane diverges, the loss falls),
-   a lane permutation (BITWISE permuted), 64 lanes solved alone (same
-   Newton iterations, states within 1e-12) and 64 against the port on
+   a lane permutation (BITWISE permuted), 16 lanes solved alone (same
+   Newton iterations, states within 1e-12) and 16 against the port on
    the CPU (rtol 1e-8 / atol 1e-10), with times, replays, host reads,
    graph pools, one trace and the peak;
 15. the memory planner (``repro_torch.mem``) at the classifier's width
@@ -174,7 +175,7 @@ Phases (any failure exits non-zero, before the last line is printed):
    lane 0 errors, lanes 1-7 BITWISE the clean run, injected malformed and
    oversize requests refused and counted;
 18. ODE serving (``repro_torch.serve.ODEEngine``) at phase 3's width
-   and weights (dopri5, dt 0.1, 10 steps, unfused as the JAX engine runs
+   and weights (dopri5, dt 0.2, 5 steps, unfused as the JAX engine runs
    it), buckets (8, 64), segment 4: 72 requests (48 density, 16 score, 8
    classify) through the device tier captured (6 graphs: warm-up ms,
    capture ms, pool bytes) and eager, the spill and the disk tiers, every
@@ -202,8 +203,8 @@ Phases (any failure exits non-zero, before the last line is printed):
    RWKV6-7B (S 300, the RWKV6 kernels, counted) on the card against the
    port on the CPU from the same parameters, and the none/full/sqrt/
    revolve(1) depth remat gradients BITWISE equal on the card; (c)
-   TinyLlama-1.1B at its full config (22 layers, bf16, remat sqrt, the
-   chunked custom backward) for 4 steps of batch 2 x 4096 with a
+   TinyLlama-1.1B at full width with 8 of its 22 layers (bf16, remat
+   sqrt, the chunked custom backward) for 4 steps of batch 2 x 4096 with a
    checkpoint directory and a ``MetricsSink`` (step ms, tokens/s, the
    allocator's peak over the first step), then again with step 2 poisoned:
    one step skipped, the committed losses BITWISE the clean run's; (d)
@@ -211,6 +212,25 @@ Phases (any failure exits non-zero, before the last line is printed):
    layers do not fit 80 GB) for 3 steps of batch 4 x 2048, its RWKV6
    forward and backward launches counted against
    ``expected_rwkv6_train_calls``;
+20. MoE and gradient compression (``repro_torch.nn.moe``,
+   ``repro_torch.optim.compress``) at Mixtral-8x7B's width: (a) one
+   layer's MoE block (d 4096, d_ff 14336, 8 experts, top 2, bf16) on 8 x
+   2048 tokens, dropless on the routed rows and at cf 1.25 in static
+   slots and on the routed rows, against an fp32 per-expert loop on the
+   same routing within 8 bf16 roundings, the kept pairs at cf 1.25 equal
+   to a host recount, two backward calls BITWISE equal; (b) Mixtral-8x7B
+   served at full width with 8 of its 32 layers (batch 8, prompt 2048,
+   64 tokens, window 4096, the flash kernel on every prefill layer,
+   counted), decode replayed BITWISE the eager loop, the peak within the
+   weights plus 8 GB, prefill(S) against prefill(S - 1) + one decode
+   step; (c) trained at full width with 1 layer (batch 2 x 2048, remat
+   sqrt, the chunked attention) for 3 steps under each of compress None,
+   bf16 and int8; (d) reduced and fp32: one step of each scheme on the
+   card against the CPU, the remat policies BITWISE, an int8 run resumed
+   from a checkpoint BITWISE the uninterrupted one (losses and residual);
+   (e), in phase 5: the flash kernel at Mixtral's prefill shape (8, 32,
+   8, 2048, 128) with window 4096, held to its limits and timed beside
+   its bound and SDPA;
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
@@ -224,7 +244,8 @@ auto-planned classifier gradients and each of phase 16's counted
 gradients, phase 17's counted gradients, adaptive request and
 checkpointed training, phase 18's engines (0 expected) for
 ``fused_lincomb``, phase 6 and phase 17e's two
-serves for the flash kernel, phase 9 for the RWKV6 kernel, phase 19d's
+serves and phase 20b's Mixtral serve for the flash kernel, phase 9 for
+the RWKV6 kernel, phase 19d's
 training for the RWKV6 forward and backward kernels) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
 which for a captured graph is the capture, not the replay, so the counts
@@ -299,8 +320,9 @@ def check(cond, msg):
 
 def bits(x):
     import torch
-    return x.contiguous().view(torch.int32 if x.dtype == torch.float32
-                               else torch.int64)
+    return x.contiguous().view({1: torch.int8, 2: torch.int16,
+                                4: torch.int32,
+                                8: torch.int64}[x.element_size()])
 
 
 def rel_err(a, b):
@@ -567,8 +589,10 @@ def kernel_phase(card):
 # phase 3: CNF density + score at POWER width
 # ---------------------------------------------------------------------------
 
+# the POWER table's CNF (benchmarks/cnf_tables.py:19) with its depth in
+# time cut from N_t = 10 to 5 steps, as phases 3, 3b and 18 use it
 CNF = dict(dim=6, hidden=(64, 64, 64), batch=10000, method="dopri5",
-           n_steps=10, adjoint="pnode")
+           n_steps=5, adjoint="pnode")
 
 
 def cnf_requests(theta, x, fused):
@@ -759,6 +783,9 @@ def flash_phase(card, dev):
     cases = [(shape, c, w) for shape in fc.FLASH_SHAPES
              for c, w in fc.FLASH_MASKS] + fc.FLASH_RAGGED
     cases.append(((b, h, hkv, s, s, dh), True, 0))
+    mb, mh, mhkv, ms_, mdh = fc.FLASH_MIXTRAL
+    cases.append(((mb, mh, mhkv, ms_, ms_, mdh), True,
+                  fc.FLASH_MIXTRAL_WINDOW))
     worst = {"float32": 0.0, "bfloat16": 0.0}   # max|kernel - plain|
     ratios = {"float32": 0.0, "bfloat16": 0.0}  # worst ratio to the limit
     margins = dict.fromkeys(fc.WRONG_ANSWERS, 0.0)
@@ -878,6 +905,41 @@ def flash_phase(card, dev):
                   "SDPA and the flash kernel disagree at the slice's shape")
         rows[name] = row
         del q, k, v
+    # Mixtral-8x7B's prefill shape (phase 20e): bf16, causal, window 4096
+    pairs = mb * mh * ms_ * (ms_ + 1) // 2     # the window covers every key
+    mflops = 4 * mdh * pairs
+    q, k, v = fc.flash_inputs(mb, mh, mhkv, ms_, ms_, mdh, rng, device=dev,
+                              dtype=torch.bfloat16)
+    mask = dict(causal=True, window=fc.FLASH_MIXTRAL_WINDOW)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    kern = lambda: flash_attention_bhsd(q, k, v, **mask)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    plain = lambda: attention_plain(q, k, v, **mask)  # noqa: E731
+    row = dict(shape=list(fc.FLASH_MIXTRAL), window=mask["window"],
+               dtype="bfloat16", causal=True, flops=mflops, bytes=nbytes,
+               bound_ms=max(mflops / BF16_FLOP_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+               bound_by=("operations" if mflops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               call_ms=time_ms(kern, 20, 3), ms=device_ms(kern, iters=10),
+               library_ms=device_ms(lib, 10),
+               library_call_ms=time_ms(lib, 20, 3),
+               plain_ms=device_ms(plain, iters=3),
+               plain_call_ms=time_ms(plain, 3, 1),
+               ratio=fc.bf16_ratio(kern(), q, k, v, plain=plain(), **mask))
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["x_library"] = row["ms"] / row["library_ms"]
+    rows["mixtral"] = row
+    del q, k, v
+    print(f"  flash bf16 (wgmma) Mixtral-8x7B prefill {fc.FLASH_MIXTRAL} "
+          f"causal, window {mask['window']}: kernel {row['ms']:.4f} ms (call "
+          f"{row['call_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {mflops:.4e} FLOP, {nbytes} B): "
+          f"{row['x_bound']:.3f}x; SDPA {row['library_ms']:.4f} ms (call "
+          f"{row['library_call_ms']:.4f}): {row['x_library']:.3f}x; plain "
+          f"{row['plain_ms']:.4f} ms; ratio to the bf16 limit "
+          f"{row['ratio']:.4f} {card}", flush=True)
     bf, f32 = rows["bfloat16"], rows["float32"]
     print(f"  flash bf16 (wgmma) {fc.FLASH_SLICE} causal: kernel "
           f"{bf['ms']:.4f} ms (call {bf['call_ms']:.4f}; the earlier "
@@ -1832,7 +1894,7 @@ def adaptive_batched_phase(card, dev, theta, x):
 # phase 13: the stiff Robertson example (paper §5.3), fp64
 # ---------------------------------------------------------------------------
 
-ROBERTSON_EPOCHS = 3
+ROBERTSON_EPOCHS = 2      # of the example's 200 (3 before PR 30)
 ROB_LOSS_RTOL = 1e-8     # card vs CPU, fp64 states (summation order)
 ROB_GRAD_TOL = 1e-5      # max|card - cpu| / max|cpu| per fp32 weight leaf
 
@@ -2025,7 +2087,7 @@ ENSEMBLE = dict(batch=1024, n_steps=30, dt=0.01, train_steps=5, lr=0.05,
                 seed=0)
 ENS_SOLVER = dict(newton_iters=16, newton_tol=1e-10, gmres_iters=5,
                   gmres_tol=1e-12)
-ENS_SOLO = 64              # lanes solved alone (B = 1) and against the CPU
+ENS_SOLO = 16              # lanes solved alone (B = 1) and against the CPU
 # the lanes of this sample whose Newton loop exhausts its 16 iterations at
 # c_true: the JAX reference flags the same lane (137 iterations, residual
 # 3.57e-5; tests/test_torch_implicit_lanes.py holds it against JAX)
@@ -2068,8 +2130,9 @@ def ensemble_phase(card, dev):
     of 0.01), as the reference's ``vgrad_dev``: the gradient eager and
     captured (bitwise equal), the convergence audit at c_true (the lanes
     that diverge are the reference's), 5 AdamW steps from c = 0 (no lane
-    diverges, the loss falls), a lane permutation (bitwise), 64 lanes
-    solved alone, and 64 lanes against the port on the CPU."""
+    diverges, the loss falls), a lane permutation (bitwise),
+    ``ENS_SOLO`` lanes solved alone, and as many against the port on the
+    CPU."""
     import numpy as np
     import torch
     from repro_torch.core.adaptive import CHECK_EVERY
@@ -2216,7 +2279,7 @@ def ensemble_phase(card, dev):
     print("stiff ensemble lane permutation (at c_true): states, gradient "
           "rows and Newton iterations permuted bitwise", flush=True)
 
-    # -- 64 lanes alone (B = 1) ---------------------------------------------------
+    # -- ENS_SOLO lanes alone (B = 1) ----------------------------------------
     solo = solver()
     worst, same_iters = 0.0, True
     with torch.no_grad():
@@ -2234,7 +2297,7 @@ def ensemble_phase(card, dev):
           f"batch's Newton iterations, states within {worst:.3e} relative "
           f"(limit {ENS_SOLO_RTOL})", flush=True)
 
-    # -- 64 lanes and the audit's diverged ones against the port on the CPU -----
+    # -- ENS_SOLO lanes and the audit's diverged ones against the CPU port ----
     sl = torch.tensor(list(range(ENS_SOLO)) + bad, device=dev)
     cpu_solver = ImplicitSolver(robertson_lanes, dt=dt, n_steps=n_steps,
                                 method="cn", lanes=True, **ENS_SOLVER)
@@ -3316,9 +3379,10 @@ def serve_fault_phase(cfg, params, card, dev):
 # the stream: 3 of 4 density and 1 of 4 score over ``pairs`` points, then
 # ``classify`` classifier requests; ``fresh`` new requests lead the second
 # pass; ``solo`` requests a kind go alone through an eager bucket-1
-# program (v); the split store keeps ``split_snaps`` slots in RAM
+# program (v); the split store keeps ``split_snaps`` slots in RAM, half
+# of the poisoned run's 16 scores x N_t slots, so the rest go to disk
 SERVE_ODE = dict(buckets=(8, 64), segment=4, pairs=64, classify=8,
-                 fresh=12, solo=1, classes=10, split_snaps=80,
+                 fresh=12, solo=1, classes=10, split_snaps=40,
                  adaptive_points=16, adaptive_eager=1, max_steps=512)
 SERVE_SPOOL = ROOT / "build" / "serve_spool"
 
@@ -3340,7 +3404,7 @@ def ulps(a, b):
 def ode_serving_phase(card, dev, theta, x):
     """Phase 18: ``repro_torch.serve.ODEEngine`` at the width of phase 3
     (its weights and points: ``cnf_vf``, dim 6, hidden (64, 64, 64),
-    dopri5, dt 0.1, 10 steps, unfused as the JAX engine runs it), buckets
+    dopri5, ``CNF``'s steps, unfused as the JAX engine runs it), buckets
     (8, 64), segment 4.  One stream of 72 requests (48 density, 16 score,
     8 classify) through the device tier captured (6 graphs, warmed up
     first) and eager, the spill tier and the disk tier: every result
@@ -3643,8 +3707,9 @@ TRAIN_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
 # params within lr * 1e-3 max|g| / eps of the update (d u / d g <= 1 / eps)
 TRAIN_M_TOL, TRAIN_V_TOL = 1e-3, 2e-3
 # the full-width runs through repro_torch.launch.train.train
-TRAIN_LM = dict(arch="tinyllama-1.1b", batch=2, seq=4096, steps=4,
-                nan_step=2)
+# TinyLlama-1.1B at full width, depth cut to 8 of its 22 layers (PR 30)
+TRAIN_LM = dict(arch="tinyllama-1.1b", n_layers=8, batch=2, seq=4096,
+                steps=4, nan_step=2)
 TRAIN_RWKV = dict(arch="rwkv6-7b", n_layers=4, batch=4, seq=2048, steps=3)
 
 
@@ -3959,7 +4024,7 @@ def traced_train_step(cfg, spec, kernel, card, dev):
 
 
 def lm_training_phase(card, dev):
-    """(c) TinyLlama-1.1B at full config (22 layers, bf16) and (d)
+    """(c) TinyLlama-1.1B at full width, 8 of its 22 layers, bf16, and (d)
     RWKV6-7B at full width with 4 of 32 layers, through
     ``repro_torch.launch.train.train``."""
     import dataclasses
@@ -4008,8 +4073,10 @@ def lm_training_phase(card, dev):
 
     # (c) TinyLlama-1.1B: attn_impl "auto" takes the chunked custom
     # backward at 4096 positions; remat "sqrt" (the config's)
-    cfg = get_arch(TRAIN_LM["arch"])
-    check(cfg.remat == "sqrt" and cfg.attn_impl == "auto",
+    cfg = dataclasses.replace(get_arch(TRAIN_LM["arch"]),
+                              n_layers=TRAIN_LM["n_layers"])
+    check(cfg.remat == "sqrt" and cfg.attn_impl == "auto"
+          and not cfg.windows and not cfg.layer_kinds,
           "TinyLlama's config: remat and attention")
     clean = run(cfg, TRAIN_LM, ckpt=True)
     faulted = run(cfg, TRAIN_LM, ckpt=True, fault_plan=FaultPlan(
@@ -4082,6 +4149,396 @@ def training_phase(card, dev):
     finally:
         torch.use_deterministic_algorithms(False)
     return dict(kernel=kernel, agreement=agreement, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MoE and gradient compression, Mixtral-8x7B
+# ---------------------------------------------------------------------------
+
+# one Mixtral-8x7B layer's MoE block (src/repro/configs/mixtral_8x7b.py) on
+# the serve's 8 x 2048 tokens
+MOE_BLOCK = dict(batch=8, seq=2048, d_model=4096, d_ff=14336, n_experts=8,
+                 top_k=2)
+# bf16 block against the fp32 loop on the same routing, normwise: 8 bf16
+# roundings u = 2**-9 (moe_block_phase's docstring); LM_BF16_REL_TOL bounds it
+MOE_BF16_REL_TOL = 8 * 2.0 ** -9
+# Mixtral-8x7B served at full width with 8 of 32 layers: 32 layers' bf16
+# weights are 93 GB, 8 are 23.5 GB
+MIXTRAL_SERVE = dict(arch="mixtral-8x7b", n_layers=8, batch=8,
+                     prompt_len=2048, gen=64, decode_slice=8)
+# the serve's peak above its weights: the dense dropless dispatch alone
+# would need about 26 GB a layer
+MIXTRAL_SERVE_HEADROOM = 8 * 2 ** 30
+# Mixtral-8x7B trained at full width with 1 of 32 layers (2 layers do not
+# fit: their params, gradients and the update's old and new fp32 moments
+# take 70 GB before any transient; moe_training_phase's docstring)
+MIXTRAL_TRAIN = dict(arch="mixtral-8x7b", n_layers=1, batch=2, seq=2048,
+                     steps=3)
+COMPRESS_SCHEMES = (None, "bf16", "int8")
+# card against CPU at reduced(mixtral-8x7b), fp32: batch, sequence; the
+# int8 resume runs RESUME_STEPS with a checkpoint after RESUME_AT
+MOE_REDUCED = dict(batch=2, seq=64)
+RESUME_STEPS, RESUME_AT = 4, 2
+
+
+def mixtral_cfg(n_layers, **kw):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    base = get_arch("mixtral-8x7b")
+    return dataclasses.replace(base, n_layers=n_layers,
+                               windows=base.windows[:n_layers], **kw)
+
+
+def moe_recount(idx, cap, group):
+    """The kept mask recounted on the host from the top-k indices (T, K):
+    per group of ``group`` tokens, each (token, slot) pair in token-major,
+    slot-minor order takes the next place of its expert; places at or past
+    ``cap`` drop."""
+    import numpy as np
+    idx = np.asarray(idx)
+    keep = np.zeros(idx.shape, bool)
+    for g0 in range(0, idx.shape[0], group):
+        used = {}
+        for t in range(g0, g0 + group):
+            for j, e in enumerate(idx[t]):
+                keep[t, j] = used.get(int(e), 0) < cap
+                used[int(e)] = used.get(int(e), 0) + 1
+    return keep
+
+
+def moe_block_phase(card, dev):
+    """(a) One Mixtral-8x7B layer's MoE block at full width, bf16, on 8 x
+    2048 tokens: dropless on the routed rows (``"sorted"``, prefill's
+    layout) and at cf 1.25 in static slots (training's) and on the routed
+    rows, each against ``moe_plain`` (an fp32 per-expert loop over the
+    same routing, on the card).
+
+    The tolerance, ``MOE_BF16_REL_TOL`` = 8 u (u = 2**-9, bf16's unit
+    roundoff), normwise (max|diff| / max|plain|): the inputs and weights
+    are the same bf16 values on both sides and every product is
+    accumulated in fp32, so the block differs from the loop only by its
+    roundings to bf16, each a relative error of at most u of the element
+    it rounds: x W_gate, its activation, x W_up, their product, the
+    down-projection's output, the gate cast to bf16, the output: 7, and
+    the sum over F of the down-projection carries the first four as
+    independent relative errors, which do not grow with F normwise; one
+    more u for the fp32 sums' order.  LM_BF16_REL_TOL (5e-2) bounds it.
+
+    At cf 1.25 the kept pairs equal a recount on the host from the top-k
+    indices (``moe_recount``).  Then the block's gradient at cf 1.25 in
+    slots (the training layout), twice under deterministic algorithms:
+    the same bits."""
+    import numpy as np
+    import torch
+    from repro_torch.nn import moe
+
+    s = MOE_BLOCK
+    e, k, d, f = s["n_experts"], s["top_k"], s["d_model"], s["d_ff"]
+    t = s["batch"] * s["seq"]
+    gen = torch.Generator(dev).manual_seed(20)
+    p = moe.init_moe(gen, d, f, e, torch.bfloat16, device=dev)
+    x = torch.randn(s["batch"], s["seq"], d, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    rows = {}
+    for name, cf, dispatch in (("dropless", float(e), "sorted"),
+                               ("cf1.25_slots", 1.25, "slots"),
+                               ("cf1.25_sorted", 1.25, "sorted")):
+        kw = dict(n_experts=e, top_k=k, capacity_factor=cf,
+                  dispatch=dispatch)
+        with torch.no_grad():
+            r = moe.route(p["w_router"], x.reshape(t, d), n_experts=e,
+                          top_k=k, capacity_factor=cf)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out, aux = moe.moe_block(p, x, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            rel = rel_err(out.float(), moe.moe_plain(p, x, r))
+            ms = time_ms(lambda: moe.moe_block(p, x, **kw), 3, 1)
+            plain_ms = time_ms(lambda: moe.moe_plain(p, x, r), 1, 0)
+        kept = int(r.keep.sum())
+        check(out.shape == x.shape and out.dtype == torch.bfloat16
+              and bool(torch.isfinite(out).all()) and math.isfinite(float(aux))
+              and rel <= MOE_BF16_REL_TOL,
+              f"MoE block {name}: bf16 vs the fp32 loop max|diff|/max|plain| "
+              f"{rel} (tolerance {MOE_BF16_REL_TOL}), finite "
+              f"{bool(torch.isfinite(out).all())}")
+        if cf < e:
+            recount = moe_recount(r.idx.cpu(), r.cap, t // r.group)
+            check(np.array_equal(recount, r.keep.cpu().numpy()),
+                  f"MoE block {name}: kept pairs {kept} against the host "
+                  f"recount's {int(recount.sum())}")
+        else:
+            check(kept == t * k, f"dropless block kept {kept} of {t * k}")
+        # the three GEMMs a routed row: 2 d f FLOP each; slots run every
+        # capacity slot, filled or not
+        computed = e * r.group * r.cap if dispatch == "slots" else kept
+        flops = 6 * kept * d * f
+        nbytes = (3 * e * d * f + 2 * t * d) * 2
+        rows[name] = dict(capacity_factor=cf, dispatch=dispatch,
+                          rel_err=rel, kept=kept, pairs=t * k, cap=r.cap,
+                          groups=r.group, rows_computed=computed, ms=ms,
+                          plain_ms=plain_ms, peak_above_bytes=peak,
+                          aux=float(aux), flops=flops,
+                          bound_ms=max(flops / BF16_FLOP_PER_S,
+                                       nbytes / HBM_BYTES_PER_S) * 1e3)
+        print(f"phase 20a MoE block {name} ({s['batch']} x {s['seq']} tokens,"
+              f" d {d}, d_ff {f}, {e} experts, top {k}, bf16, {dispatch}): "
+              f"kept {kept} of {t * k} pairs (cap {r.cap} a group of "
+              f"{t // r.group}), {computed} expert rows; bf16 vs fp32 loop "
+              f"{rel:.3e} (tolerance {MOE_BF16_REL_TOL:.3e}); {ms:.3f} ms "
+              f"(fp32 loop {plain_ms:.1f} ms; bound "
+              f"{rows[name]['bound_ms']:.3f} ms on the kept rows); "
+              f"{peak} B above the inputs {card}", flush=True)
+        del out, r
+    # the gradient at cf 1.25 in slots, twice: the same bits
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    leaves = {n: v.detach().requires_grad_(True) for n, v in p.items()}
+    xx = x.detach().requires_grad_(True)
+    runs, bwd_ms = [], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out, aux = moe.moe_block(leaves, xx, n_experts=e, top_k=k,
+                                     capacity_factor=1.25)
+            g = torch.autograd.grad(
+                (out.float() * dy.float()).sum() + aux,
+                [leaves[n] for n in sorted(leaves)] + [xx])
+            torch.cuda.synchronize()
+            bwd_ms.append((time.time() - t0) * 1e3)
+            runs.append(g)
+            del out, aux, g
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(*runs))
+          and all(bool(torch.isfinite(a).all()) for a in runs[0]),
+          "MoE block: two backward calls at cf 1.25 differ")
+    print(f"phase 20a MoE block gradient at cf 1.25 (slots): two calls "
+          f"BITWISE equal, forward + backward {bwd_ms[0]:.1f} ms, then "
+          f"{bwd_ms[1]:.1f} ms; {peak} B above the inputs {card}", flush=True)
+    del runs, leaves, xx, p, x, dy
+    gc_collect()
+    return dict(rows=rows, bwd_ms=bwd_ms, bwd_peak_above_bytes=peak)
+
+
+def mixtral_serve_phase(card, dev):
+    """(b) Mixtral-8x7B at full width, 8 of 32 layers, through
+    ``launch/serve.py`` and ``LMEngine`` (``serve_phase``): batch 8, prompt
+    2048, 64 greedy tokens, window 4096, ``attn_impl="pallas"``; flash
+    launches == ``expected_flash_calls``; the captured decode's tokens
+    BITWISE the eager loop's (``eager_decode_phase``); the peak within the
+    weights plus ``MIXTRAL_SERVE_HEADROOM``; and the last logits of
+    prefilling S tokens against prefilling S - 1 and one decode step
+    (dropless MoE: prefill == decode) within LM_BF16_REL_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    spec = MIXTRAL_SERVE
+    cfg = mixtral_cfg(spec["n_layers"], attn_impl="pallas")
+    params, res = serve_phase(
+        cfg, spec, "flash_fwd_kernel",
+        lambda: (ops.flash_launches, ops.flash_plain_calls),
+        lm.expected_flash_calls(cfg, 1), card, dev)
+    check(res["expected"] == cfg.n_layers,
+          f"expected_flash_calls gives {res['expected']} for "
+          f"{cfg.n_layers} layers")
+    res["eager_vs_captured"] = eager_decode_phase(cfg, params, spec, res,
+                                                  card, dev)
+    over = res["peak_bytes"] - res["param_bytes"]
+    check(over <= MIXTRAL_SERVE_HEADROOM,
+          f"Mixtral serve peak {res['peak_bytes']} B is {over} B above its "
+          f"weights (limit {MIXTRAL_SERVE_HEADROOM})")
+    s = spec["prompt_len"]
+    toks = torch.from_numpy(np.random.RandomState(20).randint(
+        0, cfg.vocab_size, (spec["batch"], s))).to(dev)
+    with torch.no_grad():
+        _, last = lm.prefill(cfg, params, {"tokens": toks}, s + 1)
+        st, _ = lm.prefill(cfg, params, {"tokens": toks[:, :-1]}, s + 1)
+        dec, _ = lm.decode_step(cfg, params, st, toks[:, -1:], s - 1)
+    rel = rel_err(dec.float(), last.float())
+    check(rel <= LM_BF16_REL_TOL and bool(torch.isfinite(dec).all()),
+          f"Mixtral prefill(S) vs prefill(S-1) + decode: {rel}")
+    print(f"phase 20b Mixtral-8x7B ({spec['n_layers']} layers): last logits "
+          f"of a {s}-token prefill vs {s - 1} tokens + one decode step "
+          f"max|diff|/max|logit| {rel:.3e} (tolerance {LM_BF16_REL_TOL}); "
+          f"peak {res['peak_bytes']} B, {over} B above the weights "
+          f"{res['param_bytes']} B {card}", flush=True)
+    res["prefill_vs_decode_rel"] = rel
+    res.pop("tokens")
+    del params, st
+    gc_collect()
+    return res
+
+
+def moe_training_phase(card, dev):
+    """(c) Mixtral-8x7B at full width through ``launch/train.py``: 1 of 32
+    layers, batch 2 x 2048, remat sqrt, the chunked attention, 3 steps for
+    each ``compress`` scheme (sentinel off), step ms and the allocator's
+    peak over the first step.  Two layers do not fit the card: 3.17e9
+    parameters take 6.3 GB in bf16 and their gradients 6.3 GB more, the
+    update builds the new fp32 moments (25.4 GB) while the step's old ones
+    (25.4 GB) are held, and the fp32 copies of the clipped gradients
+    (12.7 GB), which is 76 GB before the new params, activations and int8's
+    two residuals (12.7 GB each); one layer (1.71e9 parameters) leaves
+    room for int8's.
+
+    (d) At ``reduced(mixtral-8x7b)``, fp32: one train step of each scheme
+    on the card against the port on the CPU (the loss within
+    LM_CPU_REL_TOL, phase 19b's), the four remat policies' gradients
+    BITWISE equal on the card, and an int8 run of RESUME_STEPS steps
+    against RESUME_AT steps, a checkpoint and a resumed run: the same
+    losses and the residual's bits."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs.base import ShapeCell, reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import (init_compress_state,
+                                          make_train_step, value_and_grad)
+    from repro_torch.launch.train import train
+    from repro_torch.mem.model import tree_bytes
+    from repro_torch.models import lm
+    from repro_torch.obs import MetricsSink
+    from repro_torch.optim.adamw import AdamW
+
+    spec = MIXTRAL_TRAIN
+    cfg = mixtral_cfg(spec["n_layers"], attn_impl="chunked")
+    cell = ShapeCell("train", spec["seq"], spec["batch"], "train")
+    runs = {}
+    for scheme in COMPRESS_SCHEMES:
+        with tempfile.TemporaryDirectory() as tmp:
+            sink = MetricsSink(f"{tmp}/metrics.jsonl")
+            t0 = time.time()
+            try:
+                res = train(cfg, cell, steps=spec["steps"], sink=sink,
+                            device=dev, log_every=1, compress=scheme,
+                            sentinel=False,
+                            log_fn=lambda m: print("  " + m, flush=True))
+            finally:
+                sink.close()
+            wall = time.time() - t0
+            steps, peak = train_records(f"{tmp}/metrics.jsonl")
+        name = scheme or "none"
+        step_ms = [r["step_ms"] for r in steps]
+        check(len(res["losses"]) == spec["steps"]
+              and all(math.isfinite(v) for v in res["losses"]),
+              f"Mixtral training ({name}): losses {res['losses']}")
+        n = sum(v.numel() for v in pytree.tree_leaves(res["params"]))
+        runs[name] = dict(losses=res["losses"], step_ms=step_ms,
+                          tok_per_s=[cell.global_batch * cell.seq_len
+                                     / (ms / 1e3) for ms in step_ms],
+                          peak_bytes=peak, params=n,
+                          param_bytes=tree_bytes(res["params"]), wall_s=wall)
+        print(f"phase 20c Mixtral-8x7B ({spec['n_layers']} layer, full width, "
+              f"{n} params, bf16, batch {spec['batch']} x {spec['seq']}, "
+              f"remat {cfg.remat}, chunked attention) compress={name}: losses "
+              f"{[round(v, 6) for v in res['losses']]}, step ms "
+              f"{[round(v, 1) for v in step_ms]}, peak allocated {peak} B "
+              f"over the first step {card}", flush=True)
+        del res
+        gc_collect()
+
+    # (d) reduced, fp32: card against CPU, remat bitwise, int8 resume
+    cfg = reduced(get_arch("mixtral-8x7b"), attn_impl="chunked")
+    cpu_p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card_p = pytree.tree_map(lambda v: v.to(dev), cpu_p)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (MOE_REDUCED["batch"], MOE_REDUCED["seq"]))
+        .astype(np.int32))
+    cpu_b = {"tokens": toks, "targets": toks}
+    card_b = {n: v.to(dev) for n, v in cpu_b.items()}
+    agree = {}
+    for scheme in COMPRESS_SCHEMES:
+        opt = AdamW(**TRAIN_OPT)
+        step = make_train_step(cfg, opt, compress=scheme)
+        outs = []
+        for params, batch in ((cpu_p, cpu_b), (card_p, card_b)):
+            args = (params, opt.init(params))
+            if scheme == "int8":
+                args += (init_compress_state("int8", params),)
+            outs.append(step(*args, batch, 0)[-1])
+        rel = abs(float(outs[1]["loss"]) - float(outs[0]["loss"])) \
+            / abs(float(outs[0]["loss"]))
+        check(rel <= LM_CPU_REL_TOL, f"reduced Mixtral {scheme} step: card "
+              f"vs CPU loss rel {rel} (tolerance {LM_CPU_REL_TOL})")
+        agree[scheme or "none"] = dict(loss_card=float(outs[1]["loss"]),
+                                       loss_cpu=float(outs[0]["loss"]),
+                                       rel=rel)
+    grads = {}
+    for remat, ncheck in (("none", None), ("full", None), ("sqrt", None),
+                          ("revolve", 1)):
+        c2 = dataclasses.replace(cfg, remat=remat, ncheck=ncheck)
+        loss, m, g = value_and_grad(c2, card_p, card_b)
+        grads[remat] = [loss, m["aux"]] + pytree.tree_leaves(g)
+    for remat, leaves in grads.items():
+        check(all(torch.equal(bits(a), bits(b)) for a, b in
+                  zip(leaves, grads["none"])),
+              f"reduced Mixtral: remat={remat!r} gradients differ from "
+              "'none' on the card")
+    cell = ShapeCell("train", MOE_REDUCED["seq"], MOE_REDUCED["batch"],
+                     "train")
+    kw = dict(compress="int8", device=dev, ckpt_every=100,
+              log_fn=lambda m: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train(cfg, cell, steps=RESUME_STEPS, ckpt_dir=f"{tmp}/w",
+                      **kw)
+        first = train(cfg, cell, steps=RESUME_AT, ckpt_dir=f"{tmp}/r", **kw)
+        second = train(cfg, cell, steps=RESUME_STEPS, ckpt_dir=f"{tmp}/r",
+                       **kw)
+        template = {"params": card_p, "opt_state": AdamW().init(card_p),
+                    "comp_state": init_compress_state("int8", card_p)}
+        (a, sa), (b, sb) = (CheckpointManager(f"{tmp}/{d}").restore_latest(
+            template) for d in ("w", "r"))
+    same = (second["resumed_from"] == RESUME_AT
+            and first["losses"] + second["losses"] == whole["losses"]
+            and sa == sb == RESUME_STEPS
+            and all(torch.equal(bits(x), bits(y)) for x, y in
+                    zip(pytree.tree_leaves(a["comp_state"]),
+                        pytree.tree_leaves(b["comp_state"]))))
+    check(same and any(bool(v.any()) for v in
+                       pytree.tree_leaves(a["comp_state"])),
+          f"reduced Mixtral int8 resume: losses {whole['losses']} against "
+          f"{first['losses']} + {second['losses']}, residual bitwise {same}")
+    rels = ", ".join(f"{n} {v['rel']:.2e}" for n, v in agree.items())
+    print(f"phase 20d reduced Mixtral (fp32, batch {MOE_REDUCED['batch']} x "
+          f"{MOE_REDUCED['seq']}): one step card vs CPU loss rel {rels} "
+          f"(tolerance {LM_CPU_REL_TOL}); none/full/sqrt/revolve(1) "
+          f"gradients BITWISE equal on the card; int8 {RESUME_STEPS} steps "
+          f"== {RESUME_AT} + checkpoint + resume, losses and residual "
+          f"BITWISE {card}", flush=True)
+    del cpu_p, card_p, grads, a, b
+    gc_collect()
+    return dict(runs=runs, card_vs_cpu=agree, remat_bitwise=True,
+                int8_resume_bitwise=True)
+
+
+def moe_phase(card, dev):
+    """Phase 20: the MoE block, Mixtral serving and training.  The
+    training parts run under deterministic algorithms (their bitwise
+    checks need them)."""
+    import torch
+    block = moe_block_phase(card, dev)
+    serve = mixtral_serve_phase(card, dev)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        training = moe_training_phase(card, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(block=block, serve=serve, training=training)
 
 
 def gc_collect():
@@ -4223,7 +4680,8 @@ def main():
           "CNF output shapes")
     check(bool(torch.isfinite(density).all() and torch.isfinite(score).all()),
           "CNF density/score not finite")
-    print(f"CNF POWER width: batch {CNF['batch']}, dopri5 N_t=10, pnode, "
+    print(f"CNF POWER width: batch {CNF['batch']}, dopri5 N_t="
+          f"{CNF['n_steps']}, pnode, "
           f"fused: density+score {cnf_ms[1]:.1f} ms (host clock; first "
           f"call {cnf_ms[0]:.1f} ms), mean log p {density.mean().item():.6f}, "
           f"|score| mean {score.abs().mean().item():.6f} {card}", flush=True)
@@ -4396,6 +4854,11 @@ def main():
     training = training_phase(card, dev)
     lap("19 LM training")
 
+    # -- phase 20: MoE and gradient compression, Mixtral-8x7B, counted ------
+    gc_collect()
+    mixtral = moe_phase(card, dev)
+    lap("20 Mixtral MoE")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -4456,11 +4919,15 @@ def main():
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "design": "wgmma",
-        "launches": lm_res["launches"] + faults["serve"]["launches"],
+        "launches": lm_res["launches"] + faults["serve"]["launches"]
+        + mixtral["serve"]["launches"],
         "expected_launches": lm_res["expected"]
-        + faults["serve"]["expected"],
+        + faults["serve"]["expected"] + mixtral["serve"]["expected"],
         "launches_serve_faults": faults["serve"]["launches"],
         "expected_launches_serve_faults": faults["serve"]["expected"],
+        "launches_mixtral_serve": mixtral["serve"]["launches"],
+        "expected_launches_mixtral_serve": mixtral["serve"]["expected"],
+        "mixtral_prefill_shape": fl["rows"]["mixtral"],
         "max_abs_err": max(fl["worst"].values()),
         "max_abs_err_fp32": fl["worst"]["float32"],
         "max_abs_err_bf16": fl["worst"]["bfloat16"],
@@ -4496,6 +4963,19 @@ def main():
                   "decode_graph": lm_res["stats"]["decode_graphs"][0],
                   "eager_vs_captured": lm_res["eager_vs_captured"],
                   "traces": lm_res["traces"]},
+        "mixtral_8x7b": {
+            "moe_block": mixtral["block"],
+            "serve": {k: mixtral["serve"][k] for k in
+                      ("peak_bytes", "allocated_before", "param_bytes",
+                       "cublas_workspace_bytes", "decode_ms",
+                       "eager_vs_captured", "traces",
+                       "prefill_vs_decode_rel")}
+            | {"prefill_ms": mixtral["serve"]["stats"]["prefill_s"] * 1e3,
+               "tok_per_s_steady":
+                   mixtral["serve"]["stats"]["tok_per_s_steady"],
+               "decode_graph":
+                   mixtral["serve"]["stats"]["decode_graphs"][0]},
+            "training": mixtral["training"]},
         "card": smi,
     }, {
         "name": "rwkv6_chunked_fp32",

@@ -6,6 +6,8 @@ straggler detection, the port of the JAX package's
 
   PYTHONPATH=src python -m repro_torch.examples.train_lm --steps 300 \
       --seq 128 --batch 8 [--device cpu] [--reduced]
+  PYTHONPATH=src python -m repro_torch.examples.train_lm --arch mixtral-8x7b \
+      --compress int8 --reduced --steps 4 --seq 64 --batch 2 --device cpu
 
 (``--reduced`` swaps in the tiny config for a fast smoke run; the full
 config is the default, on the one device: the JAX example's
@@ -35,17 +37,22 @@ def main(argv=None):
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_lm_ckpt"))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "bf16", "int8"],
+                    help="gradient compression (optim/compress.py)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     full = get_arch(args.arch)
     cfg = reduced(full) if args.reduced else full
     print(f"[train_lm] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
-          f"remat={cfg.remat}, device={args.device}")
+          f"remat={cfg.remat}, compress={args.compress}, "
+          f"device={args.device}")
     cell = ShapeCell("cli", args.seq, args.batch, "train")
     t0 = time.time()
     out = train(cfg, cell, steps=args.steps, ckpt_dir=args.ckpt_dir,
                 ckpt_every=100, accum=args.accum, lr=args.lr, log_every=10,
+                compress=None if args.compress == "none" else args.compress,
                 device=args.device)
     dt = time.time() - t0
     toks = args.steps * args.batch * args.seq

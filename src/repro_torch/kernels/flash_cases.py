@@ -87,6 +87,10 @@ FLASH_SHARPNESS = (1.0, 8.0)
 #: (B, H, Hkv, S, Dh) of the LM slice: TinyLlama-1.1B's attention at
 #: batch 8, prompt 1920
 FLASH_SLICE = (8, 32, 4, 1920, 64)
+#: (B, H, Hkv, S, Dh) and window of Mixtral-8x7B's prefill: batch 8, prompt
+#: 2048, GQA 4:1, dh 128, sliding window 4096 (the bf16 kernel at dh 128)
+FLASH_MIXTRAL = (8, 32, 8, 2048, 128)
+FLASH_MIXTRAL_WINDOW = 4096
 
 
 def flash_inputs(b, h, hkv, sq, sk, dh, rng, *, device="cpu",

@@ -10,7 +10,8 @@ checkpoint-restart), the port of ``repro/launch/train.py`` on one device.
 The CLI runs the reduced config of ``--arch`` unless ``--production``
 asks for the full one (here: on the one card).  Deterministic restart:
 the data pipeline is keyed by step and the checkpoint carries (params,
-opt_state), so rerunning with the same ``--ckpt-dir`` resumes and replays
+opt_state, and with ``--compress int8`` the error-feedback residual
+``comp_state``), so rerunning with the same ``--ckpt-dir`` resumes and replays
 the same loss curve.  The step runs eagerly on the device: the JAX
 package's ``jax.jit`` with donated buffers has no counterpart here, and
 ``mesh=`` (the sharded mesh) is ROADMAP Queue 1 item 14.
@@ -29,7 +30,7 @@ from repro_torch.configs.base import ModelConfig, ShapeCell, reduced
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.ft import StragglerDetector, TrainSupervisor
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import init_compress_state, make_train_step
 from repro_torch.mem.model import tree_bytes
 from repro_torch.models import lm
 from repro_torch.models.ode_nets import resolve_device
@@ -49,6 +50,10 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
           device="cuda") -> dict:
     """Returns {"losses": [...], "resumed_from": step|None, ...}, the JAX
     package's loop on one device (on the card unless ``device="cpu"``).
+
+    ``compress`` ("bf16", "int8") wires ``optim/compress.py`` into the
+    step (``launch/steps.py``); int8's residual is checkpointed under
+    ``"comp_state"`` and restored on resume and rollback.
 
     ``sink`` receives one ``train.step`` record per committed step (loss,
     global grad norm, wall ms) and one ``train.compile`` record: the
@@ -86,9 +91,16 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
                             device=device)
     opt_state = opt.init(params)
     start_step = 0
+    int8 = compress == "int8"
+    comp_state = init_compress_state(compress, params) if int8 else None
 
     def ckpt_tree():
-        return {"params": params, "opt_state": opt_state}
+        # the int8 error-feedback residual is training state: dropping it
+        # on resume would fork the loss trajectory
+        tree = {"params": params, "opt_state": opt_state}
+        if int8:
+            tree["comp_state"] = comp_state
+        return tree
 
     mgr = None
     if ckpt_dir:
@@ -96,6 +108,8 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
         if mgr.latest_step() is not None:
             restored, start_step = mgr.restore_latest(ckpt_tree())
             params, opt_state = restored["params"], restored["opt_state"]
+            if int8:
+                comp_state = restored["comp_state"]
             slog.log("train.resume", f"[train] resumed from step {start_step}",
                      step=start_step)
 
@@ -140,8 +154,13 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
                 holder = {}
 
                 def do_step():
-                    p, o, m = step_fn(params, opt_state, batch, step,
-                                      poison)
+                    if int8:
+                        p, o, c, m = step_fn(params, opt_state, comp_state,
+                                             batch, step, poison)
+                        holder.update(c=c)
+                    else:
+                        p, o, m = step_fn(params, opt_state, batch, step,
+                                          poison)
                     holder.update(p=p, o=o, m=m, loss=float(m["loss"]))
 
                 if peak_pending and on_card:
@@ -171,6 +190,8 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
                                 measured_peak_bytes=measured_peak,
                                 predicted_peak_bytes=predicted, drift=drift)
                 params, opt_state, m = holder["p"], holder["o"], holder["m"]
+                if int8:  # a skipped step hands back the old residual
+                    comp_state = holder["c"]
                 if sentinel and bool(m["nonfinite"]):
                     skipped += 1
                     consec_bad += 1
@@ -194,6 +215,8 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
                         restored, rstep = mgr.restore_latest(ckpt_tree())
                         params = restored["params"]
                         opt_state = restored["opt_state"]
+                        if int8:
+                            comp_state = restored["comp_state"]
                         rollbacks += 1
                         consec_bad = 0
                         for s in [s for s in loss_by_step if s >= rstep]:
@@ -270,8 +293,8 @@ def main(argv=None):
     ap.add_argument("--grad-dtype", default=None)
     ap.add_argument("--compress", default="none",
                     choices=["none", "bf16", "int8"],
-                    help="gradient wire compression (not ported yet: "
-                         "bf16 and int8 raise)")
+                    help="gradient wire compression (optim/compress.py); "
+                         "int8 carries its residual in the checkpoint")
     ap.add_argument("--mem-budget", default=None,
                     help="activation-memory budget in bytes (suffixes "
                          "K/M/G); the repro_torch.mem planner picks the "

@@ -22,9 +22,15 @@ The training pass (``apply_stack``) runs the units through
 package does, and unrolls the remainder layers; prefill and decode run
 no remat.
 
-Not ported yet, each raising ``NotImplementedError``: RG-LRU layers (kind
-``'r'``) and MoE (ROADMAP Queue 1 item 13; cross-attention comes with the
-enc-dec family, which ``models/lm.py`` refuses).
+An ``'a'`` layer of a config with ``n_experts`` takes the MoE block
+(``nn/moe.py``) for its MLP, as the JAX package does: training and the
+forward at ``cfg.capacity_factor`` (its aux loss summed over the stack),
+prefill and decode dropless (``max(cf, E)``), prefill on the routed rows
+only and decode in static slots.
+
+Not ported yet, raising ``NotImplementedError``: RG-LRU layers (kind
+``'r'``; ROADMAP Queue 1 item 13; cross-attention comes with the enc-dec
+family, which ``models/lm.py`` refuses).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.depth_ode import checkpointed_scan
 from repro_torch.nn import attention as attn_mod
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.layers import (glu_mlp, glu_mlp_init,
                                    layernorm, layernorm_init, rmsnorm,
@@ -55,8 +62,20 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(f"layer kind 'r' (RG-LRU) is {_TODO}")
     if kind not in ("a", "w"):
         raise ValueError(kind)
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE layers are {_TODO}")
+
+
+def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
+         inference: bool = False, dispatch: str = "slots"):
+    """An ``'a'`` layer's channel mix: the GLU MLP, or the MoE block
+    (dropless at inference, the reference's ``max(cf, E)``).  Returns
+    (y, aux)."""
+    if not cfg.n_experts:
+        return glu_mlp(p["mlp"], h, cfg.act), None
+    cf = max(cfg.capacity_factor, float(cfg.n_experts)) if inference \
+        else cfg.capacity_factor
+    return moe_mod.moe_block(p["moe"], h, n_experts=cfg.n_experts,
+                             top_k=cfg.top_k, act=cfg.act,
+                             capacity_factor=cf, dispatch=dispatch)
 
 
 def _rwkv_layer(cfg: ModelConfig, p: Params, x: torch.Tensor):
@@ -110,8 +129,13 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device="cpu",
     p["attn"] = attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
                                         cfg.n_kv_heads, cfg.dh, dt,
                                         device=device, lead=lead)
-    p["mlp"] = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device=device,
-                            lead=lead)
+    if cfg.n_experts:
+        p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.n_experts, dt, device=device,
+                                    lead=lead)
+    else:
+        p["mlp"] = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt,
+                                device=device, lead=lead)
     return p
 
 
@@ -127,8 +151,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         p["attn"], h, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
         window=window, impl=cfg.attn_impl)
     h = _norm(cfg, p["norm2"], x)
-    x = x + glu_mlp(p["mlp"], h, cfg.act)
-    return x, aux
+    y, moe_aux = _mlp(cfg, p, h)
+    return x + y, aux if moe_aux is None else moe_aux
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +280,8 @@ def prefill_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     state["k"][:, :s] = k.to(state["k"].dtype)
     state["v"][:, :s] = v.to(state["v"].dtype)
     h = _norm(cfg, p["norm2"], x)
-    x = x + glu_mlp(p["mlp"], h, cfg.act)
-    return x, state
+    y, _ = _mlp(cfg, p, h, inference=True, dispatch="sorted")
+    return x + y, state
 
 
 def prefill_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -309,8 +333,8 @@ def decode_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         rope_theta=cfg.rope_theta, window=window)
     x = x + y
     h = _norm(cfg, p["norm2"], x)
-    x = x + glu_mlp(p["mlp"], h, cfg.act)
-    return x, state
+    y, _ = _mlp(cfg, p, h, inference=True)
+    return x + y, state
 
 
 def decode_stack(cfg: ModelConfig, params: Params, state, x: torch.Tensor,

@@ -30,7 +30,10 @@ on the device tier and the adaptive path, spill and disk == the device
 tier, bitwise); LM training (the RWKV6 backward kernel against
 ``rwkv6_plain_vjp`` within ``RWKV6_BWD_TOL`` and its wrong answers beyond
 10x, bitwise run to run; the depth remat policies' gradients bitwise
-equal; a reduced RWKV6 train step against the port on the CPU).
+equal; a reduced RWKV6 train step against the port on the CPU); the MoE
+block (reduced Mixtral's, card against the CPU on equal routing; two
+backward calls bitwise equal; captured Mixtral decode bitwise eager) and
+``int8_compress`` bitwise equal to the CPU's.
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -555,7 +558,8 @@ def _same_bits(a, b):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-7b",
+                                  "mixtral-8x7b"])
 def test_decode_replay_bitwise_eager(cuda_nondet, arch, dtype):
     dev = cuda_nondet
     cfg = reduced(get_arch(arch), n_layers=2, d_model=256, n_heads=4,
@@ -1447,7 +1451,8 @@ def _train_case(arch, impl, s, device):
 
 
 @pytest.mark.parametrize("arch,impl,s", [("tinyllama-1.1b", "chunked", 600),
-                                         ("rwkv6-7b", "naive", 300)])
+                                         ("rwkv6-7b", "naive", 300),
+                                         ("mixtral-8x7b", "chunked", 300)])
 def test_remat_policies_bitwise_on_the_card(cuda, arch, impl, s):
     from torch.utils import _pytree as pytree
     from repro_torch.launch.steps import value_and_grad
@@ -1488,3 +1493,88 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     for a, c in zip(pytree.tree_leaves(s_card.m), pytree.tree_leaves(s_cpu.m)):
         assert float((a.cpu() - c).abs().max()) <= \
             1e-3 * float(c.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# MoE (nn/moe.py) and gradient compression (optim/compress.py)
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(device, e=4, k=2, b=2, s=64, d=64, f=128):
+    from repro_torch.nn import moe
+    p = moe.init_moe(torch.Generator().manual_seed(0), d, f, e)
+    x = torch.from_numpy(np.random.RandomState(1).randn(b, s, d)
+                         .astype(np.float32))
+    return p, x
+
+
+@pytest.mark.parametrize("dispatch", ["slots", "sorted"])
+@pytest.mark.parametrize("cf", [1.25, 4.0])
+def test_moe_block_card_against_cpu_on_equal_routing(cuda, cf, dispatch):
+    """Reduced Mixtral's block (d 64, d_ff 128, 4 experts, top 2), fp32,
+    TF32 off: the card routes as the CPU does (indices and kept mask
+    equal), and the output and aux loss agree within 1e-5 of max|out|."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.nn import moe
+    p, x = _moe_inputs("cpu")
+    kw = dict(n_experts=4, top_k=2, capacity_factor=cf, group_size=32,
+              dispatch=dispatch)
+    pc = pytree.tree_map(lambda t: t.to(cuda), p)
+    rc = moe.route(pc["w_router"], x.to(cuda).reshape(-1, 64), n_experts=4,
+                   top_k=2, capacity_factor=cf, group_size=32)
+    r = moe.route(p["w_router"], x.reshape(-1, 64), n_experts=4, top_k=2,
+                  capacity_factor=cf, group_size=32)
+    assert torch.equal(rc.idx.cpu(), r.idx)
+    assert torch.equal(rc.keep.cpu(), r.keep)
+    with torch.no_grad():
+        out, aux = moe.moe_block(p, x, **kw)
+        outc, auxc = moe.moe_block(pc, x.to(cuda), **kw)
+    assert float((outc.cpu() - out).abs().max()) <= \
+        1e-5 * float(out.abs().max())
+    assert abs(float(auxc) - float(aux)) <= 1e-5 * abs(float(aux))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_backward_is_the_same_bits_twice_on_the_card(cuda, dtype):
+    from repro_torch.nn import moe
+    p, x = _moe_inputs("cpu")
+    p = {n: v.to(cuda, dtype if n != "w_router" else torch.float32)
+         for n, v in p.items()}
+    x = x.to(cuda, dtype)
+    dy = torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(2),
+                     device=cuda).to(dtype)
+    runs = []
+    for _ in range(2):
+        leaves = {n: v.detach().requires_grad_(True) for n, v in p.items()}
+        xx = x.detach().requires_grad_(True)
+        out, aux = moe.moe_block(leaves, xx, n_experts=4, top_k=2,
+                                 capacity_factor=1.25, group_size=32)
+        runs.append(torch.autograd.grad(
+            (out.float() * dy.float()).sum() + aux,
+            [leaves[n] for n in sorted(leaves)] + [xx]))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*runs))
+
+
+def test_int8_compress_on_the_card_is_the_cpus_bitwise(cuda):
+    """max, IEEE division and round half to even are exact on both: the
+    quantized gradients, scales, residuals and dequantized gradients are
+    the CPU's bits, with values at exact half steps and a zero leaf."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.optim import compress as tc
+    rs = np.random.RandomState(0)
+    half = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 3.5, -126.5])
+    g = {"a": torch.from_numpy(rs.randn(4096, 33).astype(np.float32)),
+         "half": half, "zero": torch.zeros(5),
+         "b": torch.from_numpy((rs.randn(1000) * 1e-3).astype(np.float32))}
+    r = pytree.tree_map(lambda t: 0.3 * torch.randn_like(t), g)
+    to = lambda tree: pytree.tree_map(lambda t: t.to(cuda), tree)  # noqa
+    q, res = tc.int8_compress(g, r)
+    qc, resc = tc.int8_compress(to(g), to(r))
+    flat = lambda t: pytree.tree_leaves(t)  # noqa: E731
+    for a, b in zip(flat((q, res, tc.int8_decompress(q))),
+                    flat((qc, resc, tc.int8_decompress(qc)))):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b.cpu()) if a.dtype == torch.int8 \
+            else torch.equal(_bits(a), _bits(b.cpu()))
+    for a, b in zip(flat(tc.bf16_decompress(tc.bf16_compress(g))),
+                    flat(tc.bf16_decompress(tc.bf16_compress(to(g))))):
+        assert torch.equal(_bits(a), _bits(b.cpu()))

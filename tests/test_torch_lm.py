@@ -54,9 +54,13 @@ LM_TOL = dict(rtol=2e-5, atol=2e-5)
 ARCHS_SLICE = ["tinyllama-1.1b", "smollm-135m", "gemma3-4b"]
 # (arch, prompt length): the attention archs at S 24; RWKV6 on both sides
 # of its 256-token switch
+# the MoE archs at S 24: reduced Mixtral (4 experts, top 2, window 8) and
+# DBRX at its own 16 experts, top 4 (``_cfgs``)
 LM_CASES = [pytest.param(a, 24, id=a) for a in ARCHS_SLICE] + [
     pytest.param("rwkv6-7b", 32, id="rwkv6-7b-scan"),
-    pytest.param("rwkv6-7b", 300, id="rwkv6-7b-chunked")]
+    pytest.param("rwkv6-7b", 300, id="rwkv6-7b-chunked"),
+    pytest.param("mixtral-8x7b", 24, id="mixtral-8x7b"),
+    pytest.param("dbrx-132b", 24, id="dbrx-132b")]
 
 
 @pytest.fixture(autouse=True)
@@ -69,6 +73,8 @@ def _cfgs(arch, **kw):
     kw.setdefault("attn_impl", "pallas")
     if arch == "rwkv6-7b":
         kw.setdefault("n_layers", 2)
+    if arch == "dbrx-132b":  # reduced() cuts it to 4 experts, top 2
+        kw.update(n_experts=16, top_k=4)
     return (j_reduced(j_get_arch(arch), **kw), reduced(get_arch(arch), **kw))
 
 
@@ -269,10 +275,14 @@ def test_lm_forward_prefill_decode_match_jax(arch, s):
     batch_t = {"tokens": torch.from_numpy(toks),
                "targets": torch.from_numpy(toks)}
     with torch.no_grad():
-        jl, _ = jlm.forward(jcfg, jp, batch_j)
+        jl, jaux = jlm.forward(jcfg, jp, batch_j)
         tl, aux = tlm.forward(tcfg, tp, batch_t)
         _close(jl, tl)
-        assert float(aux) == 0.0
+        if tcfg.n_experts:  # the summed load-balancing loss
+            assert float(aux) > 0.0
+            _close(jaux, aux)
+        else:
+            assert float(aux) == 0.0
         (jloss, jm), (tloss, tm) = (jlm.loss_fn(jcfg, jp, batch_j),
                                     tlm.loss_fn(tcfg, tp, batch_t))
         _close(jloss, tloss)
@@ -340,6 +350,32 @@ def test_rwkv6_prefill_then_decode_equals_forward():
     assert tlm.expected_rwkv6_calls(get_arch("tinyllama-1.1b"), 2048, 1) == 0
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "dbrx-132b"])
+def test_moe_prefill_then_decode_equals_dropless_forward(arch):
+    """The JAX package's teacher-forced contract (tests/test_archs.py:67)
+    for a dropless MoE: prefill on S-1 tokens (routed rows, ``"sorted"``)
+    + 1 decode step (static slots) gives the forward's logits at the last
+    position (the forward at cf = E, so nothing drops), rtol = atol =
+    2e-4.  And the flash launches of Mixtral's prefill waves."""
+    jcfg, tcfg = _cfgs(arch)
+    _, tp = _params(jcfg, seed=1)
+    toks = torch.from_numpy(_tokens(2, 20, seed=6))
+    dropless = dataclasses.replace(tcfg,
+                                   capacity_factor=float(tcfg.n_experts))
+    with torch.no_grad():
+        full, aux = tlm.forward(dropless, tp, {"tokens": toks})
+        ops.reset_counts()
+        state, _ = tlm.prefill(tcfg, tp, {"tokens": toks[:, :-1]}, 24)
+        assert ops.flash_plain_calls == tlm.expected_flash_calls(tcfg, 1) \
+            == tcfg.n_layers
+        dec, _ = tlm.decode_step(tcfg, tp, state, toks[:, -1:], 19)
+    np.testing.assert_allclose(dec.numpy(), full[:, -1].numpy(), rtol=2e-4,
+                               atol=2e-4)
+    mixtral8 = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=8,
+                                   windows=(4096,) * 8, attn_impl="pallas")
+    assert tlm.expected_flash_calls(mixtral8, 2) == 16
+
+
 def test_prefill_impls_agree_and_steps_wrap_the_model():
     _, tcfg = _cfgs("gemma3-4b")
     _, tp = _params(j_reduced(j_get_arch("gemma3-4b")))
@@ -366,8 +402,7 @@ def test_prefill_impls_agree_and_steps_wrap_the_model():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("recurrentgemma-9b", "'r'"),
-    ("mixtral-8x7b", "MoE"), ("whisper-medium", "encoder-decoder"),
+    ("recurrentgemma-9b", "'r'"), ("whisper-medium", "encoder-decoder"),
     ("llava-next-mistral-7b", "vision_stub")])
 def test_unported_families_raise_naming_the_roadmap(arch, what):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
@@ -436,7 +471,8 @@ def _auto_mesh():
                          axis_types=(AxisType.Auto,) * 2)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "rwkv6-7b",
+                                  "mixtral-8x7b", "dbrx-132b"])
 def test_lm_engine_tokens_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)

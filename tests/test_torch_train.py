@@ -393,11 +393,15 @@ def test_rwkv6_final_state_has_no_gradient():
 # (arch, attention impl, sequence): the chunked custom VJP on TinyLlama,
 # the chunked RWKV6 form (S > 256) on RWKV6-7B
 LM_CASES = [pytest.param("tinyllama-1.1b", "chunked", 24, id="tinyllama"),
-            pytest.param("rwkv6-7b", "naive", 300, id="rwkv6-chunked")]
+            pytest.param("rwkv6-7b", "naive", 300, id="rwkv6-chunked"),
+            pytest.param("mixtral-8x7b", "chunked", 24, id="mixtral"),
+            pytest.param("dbrx-132b", "chunked", 24, id="dbrx")]
 
 
 def _lm(arch, impl, seed=0):
     kw = dict(n_layers=2, attn_impl=impl)
+    if arch == "dbrx-132b":  # reduced() cuts it to 4 experts, top 2
+        kw.update(n_experts=16, top_k=4)
     jcfg = j_reduced(j_get_arch(arch), **kw)
     tcfg = reduced(get_arch(arch), **kw)
     jp = jax.tree_util.tree_map(
@@ -442,9 +446,14 @@ def _jax_steps(jcfg, jp, batch, accum, n):
     return out
 
 
-@pytest.mark.parametrize("accum,n", [(1, 3), (2, 1)])
-def test_train_step_matches_jax(f32, accum, n):
-    jcfg, tcfg, jp = _lm("tinyllama-1.1b", "chunked")
+@pytest.mark.parametrize("arch,accum,n", [
+    pytest.param("tinyllama-1.1b", 1, 3, id="1-3"),
+    pytest.param("tinyllama-1.1b", 2, 1, id="2-1"),
+    pytest.param("mixtral-8x7b", 1, 3, id="mixtral-1-3"),
+    pytest.param("mixtral-8x7b", 2, 1, id="mixtral-2-1"),
+    pytest.param("dbrx-132b", 1, 2, id="dbrx-1-2")])
+def test_train_step_matches_jax(f32, arch, accum, n):
+    jcfg, tcfg, jp = _lm(arch, "chunked")
     batch = _batch(4, 24, seed=1)
     jouts = _jax_steps(jcfg, jp, batch, accum, n)
     opt = AdamW(**OPT)
@@ -511,3 +520,189 @@ def test_expected_rwkv6_train_calls():
     assert tlm.expected_rwkv6_train_calls(
         dataclasses.replace(get_arch("tinyllama-1.1b")), 4096, "sqrt") \
         == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# (vi) gradient compression (optim/compress.py)
+# ---------------------------------------------------------------------------
+
+def _grad_tree(seed=0):
+    """fp32 leaves: random, all zeros, and values at exact half multiples
+    of their scale (max 127 -> scale 1; max 254 -> scale 2), where round
+    half to even decides."""
+    rs = np.random.RandomState(seed)
+    half = np.array([127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 3.5, -126.5],
+                    np.float32)
+    return {"a": rs.randn(3, 5).astype(np.float32),
+            "b": {"half": half, "half2": 2.0 * half,
+                  "zero": np.zeros((4,), np.float32)},
+            "c": (rs.randn(7) * 1e-3).astype(np.float32)}
+
+
+def _bits_equal(port_tree, jax_tree):
+    tl = pytree.tree_leaves(port_tree)
+    jl = jax.tree_util.tree_leaves(jax_tree)
+    assert len(tl) == len(jl)
+    for t, j in zip(tl, jl):
+        j = np.array(j)  # a contiguous copy, 0-d kept 0-d
+        assert t.dtype == getattr(torch, str(j.dtype)), (t.dtype, j.dtype)
+        assert tuple(t.shape) == j.shape
+        assert np.array_equal(
+            t.contiguous().reshape(-1).view(torch.uint8).numpy(),
+            j.reshape(-1).view(np.uint8))
+
+
+def test_compress_functions_are_the_references_bitwise(f32):
+    from repro.optim import compress as jc
+    from repro_torch.optim import compress as tc
+    g = _grad_tree()
+    r = jax.tree_util.tree_map(lambda a: (0.25 * a).astype(np.float32),
+                               _grad_tree(1))
+    jg = jax.tree_util.tree_map(jnp.asarray, g)
+    jr = jax.tree_util.tree_map(jnp.asarray, r)
+    tg = pytree.tree_map(torch.from_numpy, g)
+    tr = pytree.tree_map(torch.from_numpy, r)
+    _bits_equal(tc.bf16_compress(tg), jc.bf16_compress(jg))
+    _bits_equal(tc.bf16_decompress(tc.bf16_compress(tg)),
+                jc.bf16_decompress(jc.bf16_compress(jg)))
+    _bits_equal(tc.int8_init(tg), jc.int8_init(jg))
+    q, s = tc.int8_quantize(tg["b"]["half"])
+    assert q.tolist() == [127, 0, 2, 2, -2, 0, 4, -126] and float(s) == 1.0
+    for leaf_t, leaf_j in zip(pytree.tree_leaves(tg),
+                              jax.tree_util.tree_leaves(jg)):
+        _bits_equal(list(tc.int8_quantize(leaf_t)),
+                    list(jc.int8_quantize(leaf_j)))
+    tq, tres = tc.int8_compress(tg, tr)
+    jq, jres = jc.int8_compress(jg, jr)
+    _bits_equal(tres, jres)
+    flat = lambda tree: [x for p in jax.tree_util.tree_leaves(  # noqa: E731
+        tree, is_leaf=lambda v: isinstance(v, tuple)) for x in p]
+    _bits_equal(flat(tq), flat(jq))
+    _bits_equal(tc.int8_decompress(tq), jc.int8_decompress(jq))
+    zero_q, zero_s = tc.int8_quantize(tg["b"]["zero"])
+    assert not zero_q.any() and float(zero_s) == np.float32(1e-12) / 127
+    for scheme in ("none", "bf16", "int8"):
+        assert tc.wire_bytes(tg, scheme) == jc.wire_bytes(jg, scheme)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tc.compressed_psum(tg, "pod")
+
+
+def _flip_close(port, ref, base, quantum, what, max_frac=0.01):
+    """Elementwise within ``base``, except where the two sides' gradients
+    (equal within rounding) fell on two sides of a rounding boundary of the
+    compression: those elements, at most ``max_frac`` of them (or 2), within
+    ``quantum`` more (one int8 step, or one bf16 ulp)."""
+    err = np.abs(port.detach().double().numpy()
+                 - np.asarray(ref, np.float64))
+    flips = err > base
+    assert flips.sum() <= max(max_frac * flips.size, 2), (what, flips.sum())
+    q = np.broadcast_to(quantum, err.shape)
+    assert (err[flips] <= base + q[flips] * (1 + 1e-3)).all(), what
+
+
+def _jax_compressed_steps(jcfg, jp, batch, scheme, n):
+    with _auto_mesh():
+        opt = JAdamW(**OPT)
+        step = jax.jit(j_make_train_step(jcfg, opt, compress=scheme))
+        p, o = jp, opt.init(jp)
+        c = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, jnp.float32),
+                                   jp) if scheme == "int8" else None
+        out = []
+        for i in range(n):
+            if scheme == "int8":
+                p, o, c, m = step(p, o, c, _jbatch(batch), jnp.int32(i))
+            else:
+                p, o, m = step(p, o, _jbatch(batch), jnp.int32(i))
+            out.append((p, o, c, m))
+    return out
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b"])
+def test_compressed_train_steps_match_jax(f32, arch, scheme):
+    """Two steps of the port's compressed step against the JAX package's
+    jitted one: the loss and grad norm of both within ``VAL_TOL``.  After
+    the first, where m = (1 - b1) g of the compressed g: the moments, the
+    params and int8's residual within ``GRAD_TOL`` of max|g| (params: 2e-5
+    of max|p|, as ``test_train_step_matches_jax``), except where the two
+    sides' gradients sat on two sides of a rounding boundary of the
+    compression, at most 1 % of the elements (or 2): there one quantum
+    apart (int8: one step, max|g| / 127 of the leaf; bf16: one ulp, 2**-7
+    of the element), a param by at most 2 lr (|AdamW's update| < 1).  m
+    is AdamW's clipped (1 - b1) g: at most (1 - b1) times the quantum."""
+    jcfg, tcfg, jp = _lm(arch, "chunked")
+    batch = _batch(2, 24, seed=2)
+    jouts = _jax_compressed_steps(jcfg, jp, batch, scheme, 2)
+    opt = AdamW(**OPT)
+    step = make_train_step(tcfg, opt, compress=scheme)
+    params = convert.params_from_jax(jp, device="cpu")
+    state = opt.init(params)
+    comp = None
+    if scheme == "int8":
+        from repro_torch.launch.steps import init_compress_state
+        comp = init_compress_state("int8", params)
+    # the first step's gradients (the residual starts at zero): each leaf's
+    # int8 step, max|g| / 127, before AdamW's clipping scales m
+    g0 = pytree.tree_leaves(value_and_grad(tcfg, params, _tbatch(batch))[2])
+    for i, (jp_i, jo_i, jc_i, jm_i) in enumerate(jouts):
+        if scheme == "int8":
+            params, state, comp, m = step(params, state, comp,
+                                          _tbatch(batch), i)
+        else:
+            params, state, m = step(params, state, _tbatch(batch), i)
+        np.testing.assert_allclose(float(m["loss"]), float(jm_i["loss"]),
+                                   **VAL_TOL)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm_i["grad_norm"]), **VAL_TOL)
+        assert state.step == int(jo_i.step) == i + 1
+        if i:
+            continue
+        leaves = zip(pytree.tree_leaves(state.m),
+                     jax.tree_util.tree_leaves(jo_i.m),
+                     pytree.tree_leaves(params),
+                     jax.tree_util.tree_leaves(jp_i),
+                     pytree.tree_leaves(comp) if comp is not None
+                     else [None] * len(pytree.tree_leaves(params)),
+                     jax.tree_util.tree_leaves(jc_i) if jc_i is not None
+                     else [None] * len(pytree.tree_leaves(params)))
+        for j, (tm, jm_, tp_, jp_, tr, jr) in enumerate(leaves):
+            jm_ = np.asarray(jm_, np.float64)
+            g_max = float(g0[j].abs().max())
+            if scheme == "int8":
+                step_g = g_max / 127
+                _flip_close(tr, jr, GRAD_TOL * g_max, step_g,
+                            f"residual {j}")
+                q_m = (1 - opt.b1) * step_g
+            else:
+                q_m = 2 ** -7 * np.abs(jm_)
+            _flip_close(tm, jm_, GRAD_TOL * (1 - opt.b1) * g_max, q_m,
+                        f"m {j}")
+            _flip_close(tp_, jp_, PARAM_TOL["atol"]
+                        + 2e-5 * np.abs(np.asarray(jp_)).max(),
+                        2 * opt.lr, f"param {j}")
+
+
+def test_int8_step_poisoned_keeps_its_residual_and_accum_raises():
+    _, tcfg, jp = _lm("mixtral-8x7b", "chunked")
+    opt = AdamW(**OPT)
+    with pytest.raises(NotImplementedError, match="accum > 1"):
+        make_train_step(tcfg, opt, accum=2, compress="int8")
+    from repro_torch.launch.steps import init_compress_state
+    params = convert.params_from_jax(jp, device="cpu")
+    batch = _tbatch(_batch(2, 16))
+    step = make_train_step(tcfg, opt, compress="int8", sentinel=True)
+    plain = make_train_step(tcfg, opt, compress="int8")
+    comp = init_compress_state("int8", params)
+    assert init_compress_state("bf16", params) is None
+    p1, s1, c1, m1 = step(params, opt.init(params), comp, batch, 0)
+    p0, s0, c0, _ = plain(params, opt.init(params), comp, batch, 0)
+    assert int(m1["nonfinite"]) == 0
+    for a, b in zip(pytree.tree_leaves((p1, s1.m, c1)),
+                    pytree.tree_leaves((p0, s0.m, c0))):
+        assert torch.equal(a, b)
+    assert any(bool(c.any()) for c in pytree.tree_leaves(c1))
+    p2, s2, c2, m2 = step(p1, s1, c1, batch, 1, poison=True)
+    assert int(m2["nonfinite"]) == 1 and s2.step == 1
+    for a, b in zip(pytree.tree_leaves((p1, s1.m, s1.v, c1)),
+                    pytree.tree_leaves((p2, s2.m, s2.v, c2))):
+        assert torch.equal(a, b)

@@ -126,13 +126,60 @@ def test_train_rejects_unknown_compression():
         make_train_step(cfg, AdamW(total_steps=10), compress="fp4")
 
 
+@pytest.mark.parametrize("arch", ["smollm-135m", "mixtral-8x7b"])
 @pytest.mark.parametrize("scheme", ["bf16", "int8"])
-def test_train_compression_names_the_roadmap(scheme):
-    cfg = reduced(get_arch("smollm-135m"), n_layers=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        make_train_step(cfg, AdamW(total_steps=10), compress=scheme)
-    for none in (None, "none"):
-        make_train_step(cfg, AdamW(total_steps=10), compress=none)
+def test_train_compressed_runs_and_skips_a_poisoned_step(arch, scheme):
+    """The loop with ``compress``: finite losses, and a NaN-poisoned step
+    skipped and retried commits the clean run's losses bitwise (int8's
+    residual is kept on the skipped step)."""
+    cfg = reduced(get_arch(arch), n_layers=2)
+    cell = ShapeCell("t", 32, 2, "train")
+    kw = dict(steps=5, compress=scheme, log_fn=_quiet, device="cpu")
+    clean = train(cfg, cell, **kw)
+    assert len(clean["losses"]) == 5 and all(np.isfinite(clean["losses"]))
+    plain = train(cfg, cell, steps=5, log_fn=_quiet, device="cpu")
+    assert clean["losses"][0] == plain["losses"][0]
+    assert clean["losses"][1:] != plain["losses"][1:]
+    faulted = train(cfg, cell, fault_plan=FaultPlan(
+        [FaultSpec("train.step", 2, "nan")]), **kw)
+    assert faulted["skipped_steps"] == 1
+    assert faulted["losses"] == clean["losses"]
+
+
+def test_train_int8_resume_is_bitwise_and_checkpoints_the_residual(
+        tmp_path):
+    """4 steps of int8 in one run against 2 steps, a checkpoint, and a
+    resumed run to 4: the same losses and the same residual bits; the
+    checkpoint tree holds ``comp_state`` beside params and opt_state."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.steps import init_compress_state
+    from repro_torch.models import lm
+    cfg = reduced(get_arch("mixtral-8x7b"), n_layers=2)
+    cell = ShapeCell("t", 32, 2, "train")
+    kw = dict(compress="int8", log_fn=_quiet, device="cpu")
+    whole = train(cfg, cell, steps=4, ckpt_dir=str(tmp_path / "w"),
+                  ckpt_every=100, **kw)
+    first = train(cfg, cell, steps=2, ckpt_dir=str(tmp_path / "r"),
+                  ckpt_every=100, **kw)
+    second = train(cfg, cell, steps=4, ckpt_dir=str(tmp_path / "r"),
+                   ckpt_every=100, **kw)
+    assert second["resumed_from"] == 2
+    assert first["losses"] + second["losses"] == whole["losses"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    opt = AdamW(total_steps=4)
+    template = {"params": params, "opt_state": opt.init(params),
+                "comp_state": init_compress_state("int8", params)}
+    trees = [CheckpointManager(str(tmp_path / d)).restore_latest(template)
+             for d in ("w", "r")]
+    assert [step for _, step in trees] == [4, 4]
+    (a, _), (b, _) = trees
+    res = pytree.tree_leaves(a["comp_state"])
+    assert any(bool(r.any()) for r in res)
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
 
 
 def test_train_refuses_a_mesh():
@@ -140,6 +187,22 @@ def test_train_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         train(cfg, ShapeCell("t", 8, 2, "train"), steps=1, mesh=object(),
               device="cpu")
+
+
+def test_cli_trains_mixtral_with_int8_on_the_cpu(tmp_path, capsys):
+    from repro_torch.examples import train_lm
+    args = ["--device", "cpu", "--arch", "mixtral-8x7b", "--reduced",
+            "--compress", "int8", "--steps", "3", "--batch", "2", "--seq",
+            "16", "--ckpt-dir", str(tmp_path / "c")]
+    out = train_lm.main(args)
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    again = train_mod.main(["--device", "cpu", "--arch", "mixtral-8x7b",
+                            "--compress", "int8", "--steps", "4",
+                            "--batch", "2", "--seq", "16", "--ckpt-dir",
+                            str(tmp_path / "c")])
+    assert again["resumed_from"] == 3 and len(again["losses"]) == 1
+    text = capsys.readouterr().out
+    assert "compress=int8" in text and "resumed from step 3" in text
 
 
 def test_cli_trains_on_the_cpu_and_resumes(tmp_path, capsys):
