@@ -223,14 +223,33 @@ Phases (any failure exits non-zero, before the last line is printed):
    64 tokens, window 4096, the flash kernel on every prefill layer,
    counted), decode replayed BITWISE the eager loop, the peak within the
    weights plus 8 GB, prefill(S) against prefill(S - 1) + one decode
-   step; (c) trained at full width with 1 layer (batch 2 x 2048, remat
-   sqrt, the chunked attention) for 3 steps under each of compress None,
-   bf16 and int8; (d) reduced and fp32: one step of each scheme on the
-   card against the CPU, the remat policies BITWISE, an int8 run resumed
-   from a checkpoint BITWISE the uninterrupted one (losses and residual);
-   (e), in phase 5: the flash kernel at Mixtral's prefill shape (8, 32,
-   8, 2048, 128) with window 4096, held to its limits and timed beside
-   its bound and SDPA;
+   step; (c) trained at full width with 2 layers (batch 2 x 2048, remat
+   sqrt, the chunked attention, the donated step, sentinel on) for 3
+   steps under each of compress None, bf16 and int8; (d) reduced and
+   fp32: one step of each scheme on the card against the CPU, the remat
+   policies BITWISE, an int8 run resumed from a checkpoint BITWISE the
+   uninterrupted one (losses and residual); (e), in phase 5: the flash
+   kernel at Mixtral's prefill shape (8, 32, 8, 2048, 128) with window
+   4096, held to its limits and timed beside its bound and SDPA;
+21. RG-LRU (``repro_torch.nn.ssm.rglru``) and the donated train step at
+   RecurrentGemma-9B's width: (a) served at full width, all 38 layers
+   (26 RG-LRU, 12 attention: dh 256, MQA 16:1, window 2048; 10,444,664,832
+   parameters, bf16, random weights drawn on the card from seed 0),
+   batch 8, prompt 4096, 64 greedy tokens (12 flash launches a wave,
+   counted), decode replayed BITWISE the eager loop, the peak within the
+   weights plus the reckoned headroom, prefill(S) against prefill(S - 1) +
+   one decode step, one layer's RG-LRU and its doubling scan timed (BITWISE
+   from run to run) with their share of the prefill; (b) trained at full
+   width with 6 of 38 layers (two (r, r, a) units; batch 2 x 2048, remat
+   sqrt, the chunked attention, the donated step, sentinel on, one attempt
+   poisoned and skipped), step ms and the first step's peak beside the
+   reckoned one; (c) reduced (r, r, a, r) and fp32: prefill, decode and a
+   train step on the card against the CPU, the remat policies BITWISE, the
+   donated step BITWISE the functional one with a poisoned step skipped;
+   (d), in phase 5: the flash kernel at its prefill shape (8, 16, 1, 4096,
+   256) with window 2048 against ``attention_plain`` and the wrong
+   answers, timed beside its bound and SDPA with the band mask (the
+   backend SDPA took printed);
 11. last: one JSON line with each kernel's launches on its main path
    (which must equal ``expected_lincomb_calls`` (phases 3-4, 15 and 16) +
    ``expected_adaptive_lincomb_calls`` / ``expected_flash_calls`` /
@@ -244,7 +263,8 @@ auto-planned classifier gradients and each of phase 16's counted
 gradients, phase 17's counted gradients, adaptive request and
 checkpointed training, phase 18's engines (0 expected) for
 ``fused_lincomb``, phase 6 and phase 17e's two
-serves and phase 20b's Mixtral serve for the flash kernel, phase 9 for
+serves, phase 20b's Mixtral serve and phase 21a's RecurrentGemma serve
+for the flash kernel, phase 9 for
 the RWKV6 kernel, phase 19d's
 training for the RWKV6 forward and backward kernels) and read just after; comparisons
 made outside those windows are not counted.  The counters count where the host launches,
@@ -932,6 +952,7 @@ def flash_phase(card, dev):
     row["x_library"] = row["ms"] / row["library_ms"]
     rows["mixtral"] = row
     del q, k, v
+    rows["recurrentgemma"] = recurrentgemma_flash_row(card, dev, rng)
     print(f"  flash bf16 (wgmma) Mixtral-8x7B prefill {fc.FLASH_MIXTRAL} "
           f"causal, window {mask['window']}: kernel {row['ms']:.4f} ms (call "
           f"{row['call_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
@@ -960,6 +981,111 @@ def flash_phase(card, dev):
     torch.cuda.empty_cache()
     return dict(worst=worst, ratios=ratios, margins=margins, rows=rows,
                 cases=n_cases)
+
+
+def sdpa_backend(kernels):
+    """The SDPA backend that ran, named from its kernels' names."""
+    names = " ".join(k[0].lower() for k in kernels)
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+ROUNDED_SCORES = "scores rounded before the row max"
+
+
+def recurrentgemma_flash_row(card, dev, rng):
+    """Phase 5's RecurrentGemma-9B case (phase 21a's prefill shape): the
+    bf16 kernel at (8, 16, 1, 4096, 256), causal, window 2048: its ratio to
+    the bf16 limit against ``attention_plain``, the wrong answers beyond
+    ``WRONG_MARGIN``, device and call ms beside the bound (the pairs the
+    window admits) and SDPA with ``enable_gqa`` and the boolean band mask
+    (the same function; a mask rules out SDPA's flash backend, so the row
+    names the backend that ran)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_cases as fc
+    from repro_torch.kernels.ops import flash_attention_bhsd
+    from repro_torch.kernels.ref import attend_mask, attention_plain
+
+    b, h, hkv, s, dh = fc.FLASH_RECURRENTGEMMA
+    w = fc.FLASH_RECURRENTGEMMA_WINDOW
+    pairs = b * h * sum(min(i + 1, w) for i in range(s))  # j <= i, i - j < w
+    flops = 4 * dh * pairs
+    mask = dict(causal=True, window=w)
+    pos = torch.arange(s, device=dev)
+    band = attend_mask(pos, pos, True, w)
+    # the derived limit at diffuse and sharp scores; each wrong answer must
+    # exceed it 10x at one of them (as over phase 5's grid)
+    ratio, worst = 0.0, 0.0
+    margins = dict.fromkeys(fc.WRONG_ANSWERS, 0.0)
+    for sharp in fc.FLASH_SHARPNESS:
+        q, k, v = fc.flash_inputs(b, h, hkv, s, s, dh, rng, device=dev,
+                                  dtype=torch.bfloat16, sharpness=sharp)
+        out = flash_attention_bhsd(q, k, v, **mask)
+        ref = attention_plain(q, k, v, **mask)
+        r = fc.bf16_ratio(out, q, k, v, plain=ref, **mask)
+        check(out.shape == ref.shape and r <= 1,
+              f"bf16 flash at RecurrentGemma's shape beyond the derived "
+              f"limit: sharpness {sharp}, ratio {r:.3f}, max|diff| "
+              f"{max_abs(out, ref)}")
+        ratio, worst = max(ratio, r), max(worst, max_abs(out, ref))
+        for name, wrong in fc.WRONG_ANSWERS.items():
+            margins[name] = max(margins[name], fc.bf16_ratio(
+                wrong(q, k, v, **mask), q, k, v, plain=ref, **mask))
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                 enable_gqa=True)
+        check(torch.allclose(lib_out.float(), out.float(), rtol=5e-2,
+                             atol=5e-2),
+              "SDPA and the flash kernel disagree at RecurrentGemma's shape")
+        del lib_out, ref, out
+    # at dh 256 the limit's reorder term (c 2**-20 A, c ~ 4 (dh + 3) T / 8
+    # with T ~ 100 at sharpness 8) is four times its rounding term, and
+    # scores rounded to bf16 before the max err by about 2**-9 |s|: that
+    # answer is rejected (above 1x) but not 10x at this shape; phase 5's
+    # grid holds it 10x at the smaller head dims
+    for name, m in margins.items():
+        need = 1.0 if name == ROUNDED_SCORES else fc.WRONG_MARGIN
+        check(m > need, f"a wrong flash answer ({name}) at RecurrentGemma's "
+              f"shape exceeds the bf16 limit only {m:.2f}x (needs {need}x)")
+    # timed on the sharp inputs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    kern = lambda: flash_attention_bhsd(q, k, v, **mask)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=band, enable_gqa=True)
+    plain = lambda: attention_plain(q, k, v, **mask)  # noqa: E731
+    backend = sdpa_backend(device_kernels(lib)[0])
+    row = dict(shape=list(fc.FLASH_RECURRENTGEMMA), window=w,
+               dtype="bfloat16", causal=True, pairs=pairs, flops=flops,
+               bytes=nbytes, ratio=ratio, wrong_answer_margins=margins,
+               max_abs_err=worst,
+               bound_ms=max(flops / BF16_FLOP_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+               bound_by=("operations" if flops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               call_ms=time_ms(kern, 20, 3), ms=device_ms(kern, iters=10),
+               library_ms=device_ms(lib, 5),
+               library_call_ms=time_ms(lib, 5, 1), library_backend=backend,
+               plain_ms=device_ms(plain, iters=3),
+               plain_call_ms=time_ms(plain, 3, 1))
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["x_library"] = row["ms"] / row["library_ms"]
+    print(f"  flash bf16 (wgmma) RecurrentGemma-9B prefill "
+          f"{fc.FLASH_RECURRENTGEMMA} causal, window {w} ({pairs} pairs): "
+          f"kernel {row['ms']:.4f} ms (call {row['call_ms']:.4f}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4e} FLOP, "
+          f"{nbytes} B): {row['x_bound']:.3f}x; SDPA with the band mask "
+          f"({backend} backend) {row['library_ms']:.4f} ms (call "
+          f"{row['library_call_ms']:.4f}): {row['x_library']:.3f}x; plain "
+          f"{row['plain_ms']:.4f} ms; ratio to the bf16 limit {ratio:.4f}, "
+          "wrong answers " + ", ".join(f"{n} {m:.1f}x"
+                                       for n, m in margins.items())
+          + f" {card}", flush=True)
+    del q, k, v, band
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4169,10 +4295,9 @@ MIXTRAL_SERVE = dict(arch="mixtral-8x7b", n_layers=8, batch=8,
 # the serve's peak above its weights: the dense dropless dispatch alone
 # would need about 26 GB a layer
 MIXTRAL_SERVE_HEADROOM = 8 * 2 ** 30
-# Mixtral-8x7B trained at full width with 1 of 32 layers (2 layers do not
-# fit: their params, gradients and the update's old and new fp32 moments
-# take 70 GB before any transient; moe_training_phase's docstring)
-MIXTRAL_TRAIN = dict(arch="mixtral-8x7b", n_layers=1, batch=2, seq=2048,
+# Mixtral-8x7B trained at full width with 2 of 32 layers: the donated
+# update holds one set of fp32 moments (moe_training_phase's docstring)
+MIXTRAL_TRAIN = dict(arch="mixtral-8x7b", n_layers=2, batch=2, seq=2048,
                      steps=3)
 COMPRESS_SCHEMES = (None, "bf16", "int8")
 # card against CPU at reduced(mixtral-8x7b), fp32: batch, sequence; the
@@ -4379,16 +4504,15 @@ def mixtral_serve_phase(card, dev):
 
 
 def moe_training_phase(card, dev):
-    """(c) Mixtral-8x7B at full width through ``launch/train.py``: 1 of 32
-    layers, batch 2 x 2048, remat sqrt, the chunked attention, 3 steps for
-    each ``compress`` scheme (sentinel off), step ms and the allocator's
-    peak over the first step.  Two layers do not fit the card: 3.17e9
-    parameters take 6.3 GB in bf16 and their gradients 6.3 GB more, the
-    update builds the new fp32 moments (25.4 GB) while the step's old ones
-    (25.4 GB) are held, and the fp32 copies of the clipped gradients
-    (12.7 GB), which is 76 GB before the new params, activations and int8's
-    two residuals (12.7 GB each); one layer (1.71e9 parameters) leaves
-    room for int8's.
+    """(c) Mixtral-8x7B at full width through ``launch/train.py`` (the
+    donated step): 2 of 32 layers, batch 2 x 2048, remat sqrt, the chunked
+    attention, 3 steps for each ``compress`` scheme with the sentinel on,
+    step ms and the allocator's peak over the first step.  3.17e9
+    parameters take 6.3 GB in bf16, their gradients 6.3 GB and the fp32
+    moments 25.4 GB, updated in place; int8 adds its residual (12.7 GB,
+    written in place) and the int8 payload (3.2 GB), and the update's
+    passes over the largest leaf, the experts' (2, 8, 4096, 14336), up to
+    three fp32 temporaries of 3.8 GB: 65 GB for int8 before activations.
 
     (d) At ``reduced(mixtral-8x7b)``, fp32: one train step of each scheme
     on the card against the port on the CPU (the loss within
@@ -4424,7 +4548,6 @@ def moe_training_phase(card, dev):
             try:
                 res = train(cfg, cell, steps=spec["steps"], sink=sink,
                             device=dev, log_every=1, compress=scheme,
-                            sentinel=False,
                             log_fn=lambda m: print("  " + m, flush=True))
             finally:
                 sink.close()
@@ -4441,7 +4564,7 @@ def moe_training_phase(card, dev):
                                      / (ms / 1e3) for ms in step_ms],
                           peak_bytes=peak, params=n,
                           param_bytes=tree_bytes(res["params"]), wall_s=wall)
-        print(f"phase 20c Mixtral-8x7B ({spec['n_layers']} layer, full width, "
+        print(f"phase 20c Mixtral-8x7B ({spec['n_layers']} layers, full width, "
               f"{n} params, bf16, batch {spec['batch']} x {spec['seq']}, "
               f"remat {cfg.remat}, chunked attention) compress={name}: losses "
               f"{[round(v, 6) for v in res['losses']]}, step ms "
@@ -4539,6 +4662,302 @@ def moe_phase(card, dev):
     finally:
         torch.use_deterministic_algorithms(False)
     return dict(block=block, serve=serve, training=training)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: RecurrentGemma-9B (RG-LRU), serving at full width and the
+# donated train step
+# ---------------------------------------------------------------------------
+
+RGEMMA = "recurrentgemma-9b"
+# src/repro/configs/recurrentgemma_9b.py's count from jax.eval_shape (the
+# config's param_count leaves out conv_w, lam and the final norm)
+RGEMMA_PARAMS = 10_444_664_832
+RGEMMA_SERVE = dict(arch=RGEMMA, batch=8, prompt_len=4096, gen=64,
+                    decode_slice=8)
+# the serve's peak above its weights, reckoned from the code: an 'r'
+# layer's prefill at 8 x 4096 holds its five (B, S, 4096) bf16 tensors (x,
+# the normed x, gate, z, the conv: 1.34 GB) and the scan's six fp32 ones
+# (a, b, a pass's two products and two concatenations: 3.22 GB), and the
+# engine the prefill's and the static KV caches of 12 layers at max_seq
+# 4160 (2 x 409 MB): 5.38 GB, plus a quarter for the allocator's blocks
+# and cuBLAS's workspaces
+RGEMMA_SERVE_HEADROOM = int(1.25 * (1.34e9 + 3.22e9 + 2 * 0.409e9))
+# trained at full width with 6 of 38 layers, two (r, r, a) units; attempt
+# 1 poisoned, so 3 committed steps take 4 attempts
+RGEMMA_TRAIN = dict(n_layers=6, batch=2, seq=2048, steps=3, nan_step=1)
+RGEMMA_REDUCED = dict(batch=2, seq=64, decode=8)
+
+
+def rgemma_cfg(n_layers=None, **kw):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    base = get_arch(RGEMMA)
+    n = n_layers or base.n_layers
+    return dataclasses.replace(base, n_layers=n,
+                               layer_kinds=base.layer_kinds[:n],
+                               windows=base.windows[:n], **kw)
+
+
+def rgemma_serve_phase(card, dev):
+    """(a) RecurrentGemma-9B at full width, all 38 layers (26 'r', 12 'a'),
+    bf16, ``attn_impl="pallas"``, through ``launch/serve.py`` and
+    ``LMEngine`` (``serve_phase``): batch 8, prompt 4096, 64 greedy tokens;
+    flash launches == ``expected_flash_calls`` (12 a wave, dh 256, MQA 16:1,
+    window 2048) with no plain call; the captured decode's tokens BITWISE
+    the eager loop's; the peak within the weights plus
+    ``RGEMMA_SERVE_HEADROOM``; prefill(S) against prefill(S - 1) + one
+    decode step within LM_BF16_REL_TOL (the conv window and the h carry);
+    then one 'r' layer's RG-LRU and its doubling scan timed at the
+    prefill's shape (their share of the prefill), the scan BITWISE from
+    run to run."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm, transformer as tf
+
+    spec = RGEMMA_SERVE
+    cfg = rgemma_cfg(attn_impl="pallas")
+    params, res = serve_phase(
+        cfg, spec, "flash_fwd_kernel",
+        lambda: (ops.flash_launches, ops.flash_plain_calls),
+        lm.expected_flash_calls(cfg, 1), card, dev)
+    n = sum(t.numel() for t in pytree.tree_leaves(params))
+    check(res["expected"] == 12 and n == RGEMMA_PARAMS,
+          f"RecurrentGemma: expected_flash_calls {res['expected']} (12), "
+          f"{n} parameters ({RGEMMA_PARAMS})")
+    res["eager_vs_captured"] = eager_decode_phase(cfg, params, spec, res,
+                                                  card, dev)
+    over = res["peak_bytes"] - res["param_bytes"]
+    check(over <= RGEMMA_SERVE_HEADROOM,
+          f"RecurrentGemma serve peak {res['peak_bytes']} B is {over} B "
+          f"above its weights (limit {RGEMMA_SERVE_HEADROOM})")
+    s = spec["prompt_len"]
+    toks = torch.from_numpy(np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (spec["batch"], s))).to(dev)
+    with torch.no_grad():
+        _, last = lm.prefill(cfg, params, {"tokens": toks}, s + 1)
+        st, _ = lm.prefill(cfg, params, {"tokens": toks[:, :-1]}, s + 1)
+        dec, _ = lm.decode_step(cfg, params, st, toks[:, -1:], s - 1)
+    rel = rel_err(dec.float(), last.float())
+    check(rel <= LM_BF16_REL_TOL and bool(torch.isfinite(dec).all()),
+          f"RecurrentGemma prefill(S) vs prefill(S-1) + decode: {rel}")
+    del st, last, dec
+
+    # one 'r' layer's RG-LRU (gates, scan, cast) and its scan alone at the
+    # prefill's shape: their share of the prefill's 26 'r' layers
+    rp = tf._index(params["blocks"]["scan"], 0)["0_r"]["rglru"]
+    gen = torch.Generator(dev).manual_seed(21)
+    z = torch.randn(spec["batch"], s, cfg.d_rnn, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        rglru_ms = time_ms(lambda: ssm.rglru(rp, z), 5, 1)
+        a = torch.rand(spec["batch"], s, cfg.d_rnn, generator=gen,
+                       device=dev)
+        b = torch.randn(spec["batch"], s, cfg.d_rnn, generator=gen,
+                        device=dev)
+        scan_ms = time_ms(lambda: ssm.linear_scan(a, b), 5, 1)
+        scan_dev_ms = device_ms(lambda: ssm.linear_scan(a, b), 3)
+        same = torch.equal(bits(ssm.linear_scan(a, b)),
+                           bits(ssm.linear_scan(a, b)))
+    check(same, "the RG-LRU doubling scan differs from run to run")
+    n_r = sum(k == "r" for k in cfg.kinds)
+    prefill_ms = res["eager_vs_captured"]["eager"]["prefill_ms"]
+    res.update(prefill_vs_decode_rel=rel, rglru_ms=rglru_ms,
+               scan_ms=scan_ms, scan_device_ms=scan_dev_ms,
+               rglru_share_of_prefill=n_r * rglru_ms / prefill_ms,
+               scan_share_of_prefill=n_r * scan_ms / prefill_ms,
+               params=n)
+    print(f"phase 21a RecurrentGemma-9B (38 layers, {n} params): last logits "
+          f"of a {s}-token prefill vs {s - 1} tokens + one decode step "
+          f"max|diff|/max|logit| {rel:.3e} (tolerance {LM_BF16_REL_TOL}); "
+          f"peak {res['peak_bytes']} B, {over} B above the weights "
+          f"{res['param_bytes']} B (limit {RGEMMA_SERVE_HEADROOM}, reckoned "
+          f"{RGEMMA_SERVE_HEADROOM / 1.25:.0f}) {card}", flush=True)
+    print(f"phase 21a RG-LRU at ({spec['batch']}, {s}, {cfg.d_rnn}): one "
+          f"layer's rglru {rglru_ms:.3f} ms, its doubling scan "
+          f"{scan_ms:.3f} ms (device {scan_dev_ms:.3f} ms, "
+          f"{math.ceil(math.log2(s))} passes, BITWISE from run to run); "
+          f"x {n_r} 'r' layers = {res['rglru_share_of_prefill']:.4f} "
+          f"(scan {res['scan_share_of_prefill']:.4f}) of the eager prefill's "
+          f"{prefill_ms:.1f} ms {card}", flush=True)
+    res.pop("tokens")
+    del params, a, b, z, rp
+    gc_collect()
+    return res
+
+
+def rgemma_train_peak(cfg):
+    """The first step's reckoned peak (B) under the donated update: bf16
+    params and gradients, fp32 moments, and the update's second pass over
+    the largest leaf, the embedding (three fp32 temporaries: the scaled
+    gradient, the moment term and the step), the activations aside.
+    ``param_count`` leaves out each 'r' layer's conv_w (4 d_rnn) and lam
+    (d_rnn) and the final norm."""
+    n = cfg.param_count() + sum(k == "r" for k in cfg.kinds) * 5 \
+        * cfg.d_rnn + cfg.d_model
+    return (2 + 2 + 8) * n + 3 * 4 * cfg.vocab_size * cfg.d_model
+
+
+def rgemma_train_phase(card, dev):
+    """(b) RecurrentGemma-9B at full width, 6 of 38 layers (two (r, r, a)
+    units), bf16, through ``launch/train.py`` (the donated step): batch 2
+    x 2048, remat sqrt, the chunked attention, 3 steps with the sentinel
+    on and attempt ``nan_step`` poisoned (skipped, then retried); step ms
+    and the allocator's peak over the first step beside the reckoned one.
+
+    (c) ``reduced(recurrentgemma-9b)`` (r, r, a, r), fp32: prefill, 8
+    teacher-forced decode steps and one train step on the card against the
+    port on the CPU (LM_CPU_REL_TOL), the four remat policies' gradients
+    BITWISE equal on the card, and the donated step BITWISE the functional
+    one over 3 steps with the second poisoned (skipped by both)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import ShapeCell, reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.ft import FaultPlan, FaultSpec
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import train
+    from repro_torch.mem.model import tree_bytes
+    from repro_torch.models import lm
+    from repro_torch.obs import MetricsSink
+    from repro_torch.optim.adamw import AdamW
+
+    spec = RGEMMA_TRAIN
+    cfg = rgemma_cfg(spec["n_layers"], attn_impl="chunked")
+    check(cfg.kinds == ("r", "r", "a") * 2 and cfg.remat == "sqrt",
+          f"RecurrentGemma's 6 layers: {cfg.kinds}, remat {cfg.remat}")
+    cell = ShapeCell("train", spec["seq"], spec["batch"], "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = MetricsSink(f"{tmp}/metrics.jsonl")
+        t0 = time.time()
+        try:
+            res = train(cfg, cell, steps=spec["steps"], sink=sink,
+                        device=dev, log_every=1,
+                        fault_plan=FaultPlan([FaultSpec(
+                            "train.step", spec["nan_step"], "nan")]),
+                        log_fn=lambda m: print("  " + m, flush=True))
+        finally:
+            sink.close()
+        wall = time.time() - t0
+        steps, peak = train_records(f"{tmp}/metrics.jsonl")
+    step_ms = [r["step_ms"] for r in steps]
+    n = sum(v.numel() for v in pytree.tree_leaves(res["params"]))
+    reckoned = rgemma_train_peak(cfg)
+    check(len(res["losses"]) == spec["steps"] and res["skipped_steps"] == 1
+          and all(math.isfinite(v) for v in res["losses"]),
+          f"RecurrentGemma training: losses {res['losses']}, skipped "
+          f"{res['skipped_steps']}")
+    run = dict(losses=res["losses"], step_ms=step_ms,
+               tok_per_s=[cell.global_batch * cell.seq_len / (ms / 1e3)
+                          for ms in step_ms], peak_bytes=peak,
+               reckoned_peak_bytes=reckoned, params=n,
+               param_bytes=tree_bytes(res["params"]), wall_s=wall,
+               skipped=res["skipped_steps"])
+    print(f"phase 21b RecurrentGemma-9B ({spec['n_layers']} layers, full "
+          f"width, {n} params, bf16, batch {spec['batch']} x {spec['seq']}, "
+          f"remat {cfg.remat}, chunked attention, donated step, attempt "
+          f"{spec['nan_step']} poisoned: 1 skipped): losses "
+          f"{[round(v, 6) for v in res['losses']]}, step ms "
+          f"{[round(v, 1) for v in step_ms]}, peak allocated {peak} B over "
+          f"the first step (reckoned {reckoned} B before activations) "
+          f"{card}", flush=True)
+    del res
+    gc_collect()
+
+    # (c) reduced, fp32: card against CPU, remat bitwise, donated bitwise
+    cfg = reduced(get_arch(RGEMMA), attn_impl="chunked")
+    r = RGEMMA_REDUCED
+    cpu_p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card_p = pytree.tree_map(lambda v: v.to(dev), cpu_p)
+    rs = np.random.RandomState(21)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                       (r["batch"], r["seq"])).astype(
+                                           np.int32))
+    teacher = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                          (r["batch"], r["decode"])))
+    max_seq = r["seq"] + r["decode"]
+    with torch.no_grad():
+        st_g, lg_g = lm.prefill(cfg, card_p, {"tokens": toks.to(dev)},
+                                max_seq)
+        st_c, lg_c = lm.prefill(cfg, cpu_p, {"tokens": toks}, max_seq)
+        serve_rel = rel_err(lg_g.cpu(), lg_c)
+        for i in range(r["decode"]):
+            tok = teacher[:, i:i + 1]
+            lg_g, st_g = lm.decode_step(cfg, card_p, st_g, tok.to(dev),
+                                        r["seq"] + i)
+            lg_c, st_c = lm.decode_step(cfg, cpu_p, st_c, tok, r["seq"] + i)
+            serve_rel = max(serve_rel, rel_err(lg_g.cpu(), lg_c))
+    cpu_b = {"tokens": toks, "targets": toks}
+    card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+    opt = AdamW(**TRAIN_OPT)
+    step = make_train_step(cfg, opt)
+    losses = [float(step(p, opt.init(p), b, 0)[-1]["loss"])
+              for p, b in ((cpu_p, cpu_b), (card_p, card_b))]
+    train_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(serve_rel <= LM_CPU_REL_TOL and train_rel <= LM_CPU_REL_TOL,
+          f"reduced RecurrentGemma card vs CPU: prefill/decode {serve_rel}, "
+          f"train step loss {train_rel} (tolerance {LM_CPU_REL_TOL})")
+    grads = {}
+    for remat, ncheck in (("none", None), ("full", None), ("sqrt", None),
+                          ("revolve", 1)):
+        c2 = dataclasses.replace(cfg, remat=remat, ncheck=ncheck)
+        loss, _, g = value_and_grad(c2, card_p, card_b)
+        grads[remat] = [loss] + pytree.tree_leaves(g)
+    for remat, leaves in grads.items():
+        check(all(torch.equal(bits(a), bits(b)) for a, b in
+                  zip(leaves, grads["none"])),
+              f"reduced RecurrentGemma: remat={remat!r} gradients differ "
+              "from 'none' on the card")
+    fun = make_train_step(cfg, opt, sentinel=True)
+    don = make_train_step(cfg, opt, sentinel=True, donate=True)
+    f_p, f_s = card_p, opt.init(card_p)
+    d_p = pytree.tree_map(torch.clone, card_p)
+    d_s = opt.init(d_p)
+    for i, poison in enumerate((False, True, False)):
+        f_p, f_s, fm = fun(f_p, f_s, card_b, i, poison)
+        d_p, d_s, dm = don(d_p, d_s, card_b, i, poison)
+        check(int(fm["nonfinite"]) == int(dm["nonfinite"]) == int(poison)
+              and f_s.step == d_s.step
+              and all(torch.equal(bits(a), bits(b)) for a, b in zip(
+                  pytree.tree_leaves((f_p, f_s.m, f_s.v)),
+                  pytree.tree_leaves((d_p, d_s.m, d_s.v)))),
+              f"reduced RecurrentGemma: the donated step {i} (poisoned "
+              f"{poison}) differs from the functional one on the card")
+    print(f"phase 21c reduced RecurrentGemma ({cfg.kinds}, fp32, batch "
+          f"{r['batch']} x {r['seq']}): card vs CPU prefill + "
+          f"{r['decode']} teacher-forced decode steps {serve_rel:.3e}, train "
+          f"step loss {train_rel:.3e} (tolerance {LM_CPU_REL_TOL}); "
+          f"none/full/sqrt/revolve(1) gradients BITWISE equal; the donated "
+          f"step BITWISE the functional one over 3 steps, the poisoned one "
+          f"skipped by both {card}", flush=True)
+    del cpu_p, card_p, grads, f_p, d_p, f_s, d_s
+    gc_collect()
+    return dict(run=run, card_vs_cpu=dict(serve_rel=serve_rel,
+                                          train_rel=train_rel),
+                remat_bitwise=True, donated_bitwise=True)
+
+
+def rgemma_phase(card, dev):
+    """Phase 21: RecurrentGemma-9B served at full width, then trained (the
+    training parts under deterministic algorithms: their bitwise checks
+    need them)."""
+    import torch
+    serve = rgemma_serve_phase(card, dev)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        training = rgemma_train_phase(card, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(serve=serve, training=training)
 
 
 def gc_collect():
@@ -4859,6 +5278,11 @@ def main():
     mixtral = moe_phase(card, dev)
     lap("20 Mixtral MoE")
 
+    # -- phase 21: RecurrentGemma-9B, counted ----------------------------------
+    gc_collect()
+    rgemma = rgemma_phase(card, dev)
+    lap("21 RecurrentGemma")
+
     # -- phase 11: the kernels line, the card, the result --------------------
     main_row = timing_rows[0]
     kernels = [{
@@ -4920,14 +5344,19 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "design": "wgmma",
         "launches": lm_res["launches"] + faults["serve"]["launches"]
-        + mixtral["serve"]["launches"],
+        + mixtral["serve"]["launches"] + rgemma["serve"]["launches"],
         "expected_launches": lm_res["expected"]
-        + faults["serve"]["expected"] + mixtral["serve"]["expected"],
+        + faults["serve"]["expected"] + mixtral["serve"]["expected"]
+        + rgemma["serve"]["expected"],
         "launches_serve_faults": faults["serve"]["launches"],
         "expected_launches_serve_faults": faults["serve"]["expected"],
         "launches_mixtral_serve": mixtral["serve"]["launches"],
         "expected_launches_mixtral_serve": mixtral["serve"]["expected"],
+        "launches_recurrentgemma_serve": rgemma["serve"]["launches"],
+        "expected_launches_recurrentgemma_serve":
+            rgemma["serve"]["expected"],
         "mixtral_prefill_shape": fl["rows"]["mixtral"],
+        "recurrentgemma_prefill_shape": fl["rows"]["recurrentgemma"],
         "max_abs_err": max(fl["worst"].values()),
         "max_abs_err_fp32": fl["worst"]["float32"],
         "max_abs_err_bf16": fl["worst"]["bfloat16"],
@@ -4976,6 +5405,20 @@ def main():
                "decode_graph":
                    mixtral["serve"]["stats"]["decode_graphs"][0]},
             "training": mixtral["training"]},
+        "recurrentgemma_9b": {
+            "serve": {k: rgemma["serve"][k] for k in
+                      ("peak_bytes", "allocated_before", "param_bytes",
+                       "cublas_workspace_bytes", "decode_ms",
+                       "eager_vs_captured", "traces",
+                       "prefill_vs_decode_rel", "rglru_ms", "scan_ms",
+                       "scan_device_ms", "rglru_share_of_prefill",
+                       "scan_share_of_prefill", "params")}
+            | {"prefill_ms": rgemma["serve"]["stats"]["prefill_s"] * 1e3,
+               "tok_per_s_steady":
+                   rgemma["serve"]["stats"]["tok_per_s_steady"],
+               "decode_graph":
+                   rgemma["serve"]["stats"]["decode_graphs"][0]},
+            "training": rgemma["training"]},
         "card": smi,
     }, {
         "name": "rwkv6_chunked_fp32",

@@ -25,12 +25,14 @@ dtype in ``tree.json``.
 ``CheckpointManager.save`` snapshots the tree on the caller's thread and
 commits it to disk on a background thread.  On the card the snapshot is
 a copy into pinned host tensors with ``copy_(non_blocking=True)`` on a
-copy stream that first waits on the compute stream; each source is
-marked with ``record_stream``, so the caching allocator does not hand its
-memory to later work (the next optimizer step drops the tensors it
-replaced) before the copy has read it, and the commit thread waits on the
-copy's event before it reads the pinned bytes.  The caller's thread never
-waits for the copy.
+copy stream that first waits on the compute stream.  The compute stream
+then waits on the copy's event, so work queued after ``save`` (the
+donated optimizer step writes the params and moments in place) runs
+after the copy has read them; each source is also marked with
+``record_stream``, so the caching allocator does not hand its memory to
+later work (a functional step drops the tensors it replaced) before the
+copy is done.  The commit thread waits on the copy's event before it
+reads the pinned bytes.  The caller's thread never waits for the copy.
 
 Elastic restore onto another mesh (``shardings=``) is ROADMAP Queue 1
 item 14 and raises.
@@ -249,9 +251,11 @@ def _snapshot(tree: Any):
         else:
             out.append(x)
     events = []
-    for s in streams.values():
+    for dev, s in streams.items():
         ev = torch.cuda.Event()
         ev.record(s)
+        # in-place writes queued later wait for the copy to read
+        torch.cuda.current_stream(dev).wait_event(ev)
         events.append(ev)
     return pytree.tree_unflatten(out, spec), events
 

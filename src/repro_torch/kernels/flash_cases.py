@@ -91,6 +91,11 @@ FLASH_SLICE = (8, 32, 4, 1920, 64)
 #: 2048, GQA 4:1, dh 128, sliding window 4096 (the bf16 kernel at dh 128)
 FLASH_MIXTRAL = (8, 32, 8, 2048, 128)
 FLASH_MIXTRAL_WINDOW = 4096
+#: (B, H, Hkv, S, Dh) and window of RecurrentGemma-9B's prefill: batch 8,
+#: prompt 4096, MQA 16:1, dh 256, sliding window 2048 (the bf16 kernel at
+#: dh 256, its window cutting the prompt)
+FLASH_RECURRENTGEMMA = (8, 16, 1, 4096, 256)
+FLASH_RECURRENTGEMMA_WINDOW = 2048
 
 
 def flash_inputs(b, h, hkv, sq, sk, dh, rng, *, device="cpu",

@@ -34,7 +34,8 @@ def value_and_grad(cfg: ModelConfig, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, accum: int = 1,
-                    compress: str | None = None, sentinel: bool = False):
+                    compress: str | None = None, sentinel: bool = False,
+                    donate: bool = False):
     """Returns train_step(params, opt_state, batch, step, poison=False) ->
     (params, opt_state, metrics).  ``accum > 1`` splits the batch into
     ``accum`` microbatches along its first axis and sums their gradients
@@ -61,7 +62,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, accum: int = 1,
               ``accum > 1`` it raises the reference's
               ``NotImplementedError``.
     None and "none" compress nothing; anything else is the reference's
-    ``ValueError``."""
+    ``ValueError``.
+
+    ``donate=True`` is the reference's jitted step with donated buffers
+    (``donate_argnums``): the step writes the params, the moments and
+    int8's residual in place (``AdamW.update_``, one leaf's temporaries at
+    a time) and returns the same trees, with the bits of the functional
+    step.  The sentinel then reads its finite flag before the update, and
+    a skipped step updates nothing: no ``torch.where`` and no second tree.
+    The caller must not hold on to the old values: they are gone."""
     if compress not in (None, "none", "bf16", "int8"):
         raise ValueError(f"unknown compression scheme {compress!r}; "
                          "one of (None, 'none', 'bf16', 'int8')")
@@ -104,6 +113,30 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, accum: int = 1,
     def keep(ok, new, old):
         return pytree.tree_map(lambda a, b: torch.where(ok, a, b), new, old)
 
+    def judge(loss, grads_seen, opt_state, metrics):
+        """The donated step's sentinel: its finite flag, read before the
+        update (its one host read a step).  Returns (ok, metrics): the
+        metrics of a skipped step when it is not ok, else None."""
+        if not sentinel:
+            return None, None
+        ok = finite(loss, grads_seen)
+        if bool(ok):
+            return ok, None
+        return ok, dict(metrics, loss=loss,
+                        grad_norm=global_grad_norm(grads_seen),
+                        lr=opt.schedule(opt_state.step),
+                        nonfinite=(~ok).to(torch.int32))
+
+    def update_(params, opt_state, grads, ok, loss, metrics, decode=None):
+        """The donated update: ``update``'s results, in place.  Returns
+        (params, opt_state, metrics)."""
+        params, opt_state, opt_metrics = opt.update_(grads, opt_state,
+                                                     params, decode=decode)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        if ok is not None:
+            metrics["nonfinite"] = (~ok).to(torch.int32)
+        return params, opt_state, metrics
+
     def update(params, opt_state, grads, grads_seen, loss, metrics):
         """The optimizer on ``grads``; the sentinel judges ``grads_seen``
         (the reference's: the poisoned grads before int8's round trip).
@@ -135,8 +168,21 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, accum: int = 1,
             params, opt_state, grads, grads, loss, metrics)
         return new_params, new_state, metrics
 
+    def train_step_donated(params, opt_state: AdamWState, batch, step,
+                           poison=False):
+        loss, metrics, grads = grads_of(params, batch)
+        if compress == "bf16":
+            # the wire's rounding, kept in bf16; update_ casts each leaf
+            # back to fp32, as bf16_decompress does
+            grads = compress_mod.bf16_compress(grads)
+        loss, grads = poisoned(loss, grads, poison)
+        ok, skipped = judge(loss, grads, opt_state, metrics)
+        if skipped is not None:
+            return params, opt_state, skipped
+        return update_(params, opt_state, grads, ok, loss, metrics)
+
     if compress != "int8":
-        return train_step
+        return train_step_donated if donate else train_step
 
     def train_step_int8(params, opt_state: AdamWState, comp_state, batch,
                         step, poison=False):
@@ -151,7 +197,31 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, accum: int = 1,
             new_comp = keep(ok, new_comp, comp_state)
         return new_params, new_state, new_comp, metrics
 
-    return train_step_int8
+    def train_step_int8_donated(params, opt_state: AdamWState, comp_state,
+                                batch, step, poison=False):
+        loss, metrics, grads = value_and_grad(cfg, params, batch)
+        loss, grads = poisoned(loss, grads, poison)
+        ok, skipped = judge(loss, grads, opt_state, metrics)
+        if skipped is not None:  # the residual keeps its bits
+            return params, opt_state, comp_state, skipped
+        # leaf by leaf: quantize, write the new residual in place and keep
+        # only the int8 payload for the update
+        g_leaves = pytree.tree_leaves(grads)
+        del grads
+        qs = []
+        for i, r in enumerate(pytree.tree_leaves(comp_state)):
+            gr = g_leaves[i] + r
+            g_leaves[i] = None
+            q, scale = compress_mod.int8_quantize(gr)
+            r.copy_(gr - compress_mod.int8_dequantize(q, scale))
+            qs.append((q, scale))
+            del gr
+        params, opt_state, metrics = update_(
+            params, opt_state, qs, ok, loss, metrics,
+            decode=lambda pair: compress_mod.int8_dequantize(*pair))
+        return params, opt_state, comp_state, metrics
+
+    return train_step_int8_donated if donate else train_step_int8
 
 
 def init_compress_state(compress: str | None, params):

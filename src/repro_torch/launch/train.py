@@ -12,9 +12,12 @@ asks for the full one (here: on the one card).  Deterministic restart:
 the data pipeline is keyed by step and the checkpoint carries (params,
 opt_state, and with ``--compress int8`` the error-feedback residual
 ``comp_state``), so rerunning with the same ``--ckpt-dir`` resumes and replays
-the same loss curve.  The step runs eagerly on the device: the JAX
-package's ``jax.jit`` with donated buffers has no counterpart here, and
-``mesh=`` (the sharded mesh) is ROADMAP Queue 1 item 14.
+the same loss curve.  The step runs eagerly on the device and, as the
+JAX package's jitted step donates its buffers, it is the donated step
+(``make_train_step(donate=True)``): params, moments and int8's residual
+are updated in place, so a rollback restores from a checkpoint, never
+from a live tensor.  ``mesh=`` (the sharded mesh) is ROADMAP Queue 1
+item 14.
 """
 from __future__ import annotations
 
@@ -114,7 +117,7 @@ def train(cfg: ModelConfig, cell: ShapeCell, *, steps: int, mesh=None,
                      step=start_step)
 
     step_fn = make_train_step(cfg, opt, accum=accum, compress=compress,
-                              sentinel=sentinel)
+                              sentinel=sentinel, donate=True)
 
     def batch_at(step):
         return {k: v.to(device) for k, v in pipe.batch(step).items()}

@@ -1,6 +1,7 @@
 """Causal LM: init / forward / loss / prefill / decode, the port of
 ``repro/models/lm.py`` for decoder-only stacks of attention layers (kind
-``'a'``) and RWKV6 layers (kind ``'w'``).
+``'a'``, dense or MoE), RWKV6 layers (kind ``'w'``) and RG-LRU layers
+(kind ``'r'``: the hybrid family, RecurrentGemma's ``r, r, a`` pattern).
 
 Batch dict conventions (the JAX package's):
   train:    {"tokens": (B, S) int, "targets": (B, S) int}
@@ -9,9 +10,8 @@ Batch dict conventions (the JAX package's):
             device or a Python int) and the decode state
 
 The encoder-decoder family and the vision/audio frontend stubs raise
-``NotImplementedError`` (ROADMAP Queue 1 item 13), as do the layer kinds
-``nn/transformer.py`` does not port yet.  ``loss_fn`` is differentiable:
-``launch/steps.py::make_train_step`` takes its gradient.
+``NotImplementedError`` (ROADMAP Queue 1 item 13).  ``loss_fn`` is
+differentiable: ``launch/steps.py::make_train_step`` takes its gradient.
 """
 from __future__ import annotations
 
@@ -107,8 +107,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device="cuda"):
     """Zeroed decode state for every layer (KV caches; RWKV6 recurrence
-    states and token-shift inputs), on the card unless ``device="cpu"``
-    is asked for."""
+    states and token-shift inputs; RG-LRU states and conv windows), on the
+    card unless ``device="cpu"`` is asked for."""
     _check_cfg(cfg)
     return tf.init_stack_state(cfg, batch, max_seq,
                                device=resolve_device(device))

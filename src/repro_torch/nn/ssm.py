@@ -50,8 +50,20 @@ variance), and the result is cast back to x's dtype before the silu gate
 and the output projection.  ``w_base``, ``u_bonus``, ``mix`` and
 ``ln_scale`` are fp32 parameters whatever the parameter dtype.
 
-RG-LRU (recurrentgemma) is not ported yet: its entry points raise
-``NotImplementedError`` (ROADMAP Queue 1 item 13).
+RG-LRU (recurrentgemma's recurrent block, ``init_rglru_block``,
+``_causal_conv1d``, ``rglru``, ``rglru_block``): the JAX package's
+functions with its parameter layout (``conv_w`` a 2-D (W, D) leaf, ``lam``
+fp32).  No TPU kernel computes them there: the recurrence is a
+``jax.lax.associative_scan`` and the conv a plain sum, so here they are
+torch ops.  The scan is a log-depth doubling scan (Hillis-Steele:
+``ceil(log2 S)`` passes over the sequence, each reading only the previous
+pass's tensors, so the same inputs give the same bits on every run) with
+the reference's ``combine``; its sums run in another order than
+``associative_scan``'s, so the two agree to rounding, not bitwise.  The
+roundings follow the reference: the gates are ``sigmoid`` in x's dtype
+then cast to fp32, ``log_a``, ``a`` and the recurrence fp32, the output
+cast back to x's dtype; the conv sums its W products in x's dtype in the
+order i = 0..W-1.
 """
 from __future__ import annotations
 
@@ -64,9 +76,6 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rwkv6_plain
 from repro_torch.nn.layers import normal
-
-_RGLRU_TODO = "RG-LRU is not ported yet (ROADMAP Queue 1 item 13)"
-
 
 # ---------------------------------------------------------------------------
 # RWKV6 time-mix
@@ -243,16 +252,95 @@ def rwkv_channel_mix(params, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# RG-LRU (recurrentgemma): not ported yet
+# RG-LRU (recurrentgemma)
 # ---------------------------------------------------------------------------
 
-def init_rglru_block(*args, **kwargs):
-    raise NotImplementedError(_RGLRU_TODO)
+def init_rglru_block(gen, d_model: int, d_rnn: int, conv_width: int = 4,
+                     dtype=torch.float32, *, device="cpu", lead=()):
+    s = 1.0 / math.sqrt(d_model)
+    sr = 1.0 / math.sqrt(d_rnn)
+    return {
+        "w_in_gate": normal(gen, (*lead, d_model, d_rnn), s, dtype, device),
+        "w_in_rnn": normal(gen, (*lead, d_model, d_rnn), s, dtype, device),
+        "w_out": normal(gen, (*lead, d_rnn, d_model), sr, dtype, device),
+        "conv_w": normal(gen, (*lead, conv_width, d_rnn), 0.1, dtype,
+                         device),
+        "w_a": normal(gen, (*lead, d_rnn, d_rnn), sr * 0.1, dtype, device),
+        "w_i": normal(gen, (*lead, d_rnn, d_rnn), sr * 0.1, dtype, device),
+        # softplus parameter of the decay
+        "lam": torch.full((*lead, d_rnn), 0.6, dtype=torch.float32,
+                          device=device),
+    }
 
 
-def rglru(*args, **kwargs):
-    raise NotImplementedError(_RGLRU_TODO)
+def _conv_rows(xp: torch.Tensor, w: torch.Tensor, rows: int):
+    """``sum_i xp[:, i:i + rows] * w[i]`` over the W taps, summed from 0
+    in the order i = 0..W-1 (the reference's ``sum``)."""
+    return sum(xp[:, i:i + rows] * w[i] for i in range(w.shape[0]))
 
 
-def rglru_block(*args, **kwargs):
-    raise NotImplementedError(_RGLRU_TODO)
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,D); w: (W,D) depthwise causal conv (zeros before the
+    sequence)."""
+    xp = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+    return _conv_rows(xp, w, x.shape[1])
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, as a
+    doubling scan: pass d combines each position with the one d before
+    it by the reference's ``combine`` ((a1, b1), (a2, b2)) -> (a1 a2,
+    a2 b1 + b2), products and sums rounded one by one."""
+    return _doubling_scan([a, b])
+
+
+def _doubling_scan(ab: list) -> torch.Tensor:
+    """``linear_scan`` on ``ab = [a, b]``, which it empties: a caller that
+    holds no other reference lets each pass free the last one's tensors
+    (outside autograd, which keeps what the backward needs)."""
+    a, b = ab
+    ab.clear()
+    s = a.shape[1]
+    d = 1
+    while d < s:
+        hb = a[:, d:] * b[:, :-d]
+        hb = torch.cat([b[:, :d], hb.add_(b[:, d:])], dim=1)
+        if 2 * d < s:
+            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        b = hb
+        d *= 2
+    return b
+
+
+def rglru(params, z: torch.Tensor, h0: torch.Tensor | None = None,
+          c: float = 8.0):
+    """Diagonal gated linear recurrence.  z: (B,S,Dr); h0: fp32 (B,Dr) or
+    None.  Returns (y in z's dtype, h_last fp32 (B,Dr))."""
+    # each (B,S,Dr) fp32 temporary is dropped once used: at a 4,096-token
+    # prompt of batch 8 each is 537 MB
+    a_gate = torch.sigmoid(z @ params["w_a"].to(z.dtype)).float()
+    a = torch.exp(-c * F.softplus(params["lam"]) * a_gate)   # log a < 0
+    del a_gate
+    i_gate = torch.sigmoid(z @ params["w_i"].to(z.dtype)).float()
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i_gate
+    del i_gate
+    gated = gated * z.float()
+    if h0 is not None:
+        # fold the carry into the first element
+        gated = torch.cat([gated[:, :1] + a[:, :1] * h0[:, None],
+                           gated[:, 1:]], dim=1)
+    ab = [a, gated]
+    del a, gated
+    h = _doubling_scan(ab)
+    return h.to(z.dtype), h[:, -1]
+
+
+def rglru_block(params, x: torch.Tensor, h0: torch.Tensor | None = None):
+    """recurrentgemma's recurrent block: the gelu gate branch times the
+    conv -> RG-LRU branch.  Returns (y, h_last)."""
+    gate = F.gelu(x @ params["w_in_gate"].to(x.dtype), approximate="tanh")
+    z = x @ params["w_in_rnn"].to(x.dtype)
+    z = _causal_conv1d(z, params["conv_w"].to(x.dtype))
+    h, h_last = rglru(params, z, h0)
+    y = (gate * h) @ params["w_out"].to(x.dtype)
+    return y, h_last

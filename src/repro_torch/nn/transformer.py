@@ -1,7 +1,8 @@
-"""Transformer depth stack, the port of ``repro/nn/transformer.py`` for
+"""Transformer depth stack, the port of ``repro/nn/transformer.py``:
 attention layers (kind ``'a'``: GQA attention with a per-layer sliding
-window + GLU MLP) and RWKV6 layers (kind ``'w'``: RWKV6 time-mix + RWKV
-channel-mix), with pre-norms and residuals.
+window + GLU MLP or MoE), RWKV6 layers (kind ``'w'``: RWKV6 time-mix +
+RWKV channel-mix) and RG-LRU layers (kind ``'r'``: recurrentgemma's
+recurrent block + GLU MLP), with pre-norms and residuals.
 
 The parameter tree keeps the JAX package's layout: ``{"scan": {...},
 "rem": {...}}``, where every ``"scan"`` leaf carries a leading axis over
@@ -16,6 +17,16 @@ JAX package's rule; its decode state is the fp32 recurrence state ``S``
 and the last normed inputs of the two token shifts, ``tm_prev`` and
 ``cm_prev``.
 
+An ``'r'`` layer's decode state is the fp32 recurrence state ``h``
+(B, d_rnn) and ``conv``, the last 3 pre-conv rows ``z`` (B, 3, d_rnn) in
+the compute dtype.  Prefill and decode write both in place, so a captured
+decode replays with no host read.  After a prompt shorter than 3 tokens
+the unused slots of ``conv`` hold zeros, which is what the reference's
+shorter window gives its first decode step under the conv's causal
+padding; the reference keeps that window short on later steps (its
+``conv`` holds S rows), where the port's holds the last 3 rows, the rows
+the full-sequence pass convolves.
+
 The training pass (``apply_stack``) runs the units through
 ``core/depth_ode.py::checkpointed_scan`` with ``cfg.remat`` and
 ``cfg.ncheck`` (the depth remat policy), carrying (x, aux) as the JAX
@@ -28,15 +39,15 @@ forward at ``cfg.capacity_factor`` (its aux loss summed over the stack),
 prefill and decode dropless (``max(cf, E)``), prefill on the routed rows
 only and decode in static slots.
 
-Not ported yet, raising ``NotImplementedError``: RG-LRU layers (kind
-``'r'``; ROADMAP Queue 1 item 13; cross-attention comes with the enc-dec
-family, which ``models/lm.py`` refuses).
+Cross-attention comes with the enc-dec family, which ``models/lm.py``
+refuses (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.depth_ode import checkpointed_scan
@@ -49,8 +60,6 @@ from repro_torch.nn.layers import (glu_mlp, glu_mlp_init,
 
 Params = Dict[str, Any]
 
-_TODO = "not ported yet (ROADMAP Queue 1 item 13)"
-
 
 def dtype_of(name: str) -> torch.dtype:
     """``"bfloat16"`` / ``"float32"`` (a config's dtype names) -> torch."""
@@ -58,9 +67,7 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind == "r":
-        raise NotImplementedError(f"layer kind 'r' (RG-LRU) is {_TODO}")
-    if kind not in ("a", "w"):
+    if kind not in ("a", "w", "r"):
         raise ValueError(kind)
 
 
@@ -90,6 +97,33 @@ def _rwkv_layer(cfg: ModelConfig, p: Params, x: torch.Tensor):
     x = x + y
     h2 = _norm(cfg, p["norm2"], x)
     return x + ssm_mod.rwkv_channel_mix(p["cmix"], h2), S, h, h2
+
+
+def _d_rnn(cfg: ModelConfig) -> int:
+    return cfg.d_rnn or cfg.d_model
+
+
+def _rglru_layer(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """An ``'r'`` layer's full-sequence pass.  Returns (x, h_last, z_tail):
+    the recurrence state after the sequence and the last 3 pre-conv rows
+    (fewer for a shorter sequence).  Each (B, S, d) tensor is dropped once
+    used, so the MLP runs beside the layer's input and output only (at
+    prefill; autograd keeps what the backward needs)."""
+    rp = p["rglru"]
+    h = _norm(cfg, p["norm1"], x)
+    gate = F.gelu(h @ rp["w_in_gate"].to(x.dtype), approximate="tanh")
+    z = h @ rp["w_in_rnn"].to(x.dtype)
+    del h
+    hseq, h_last = ssm_mod.rglru(
+        rp, ssm_mod._causal_conv1d(z, rp["conv_w"].to(x.dtype)))
+    z_tail = z[:, -3:].clone()
+    del z
+    y = (gate * hseq) @ rp["w_out"].to(x.dtype)
+    del gate, hseq
+    x = x + y
+    del y
+    h2 = _norm(cfg, p["norm2"], x)
+    return x + glu_mlp(p["mlp"], h2, cfg.act), h_last, z_tail
 
 
 def _norm_init(cfg: ModelConfig, device, lead=()):
@@ -126,6 +160,13 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device="cpu",
                                                   dt, device=device,
                                                   lead=lead)
         return p
+    if kind == "r":
+        p["rglru"] = ssm_mod.init_rglru_block(gen, cfg.d_model, _d_rnn(cfg),
+                                              dtype=dt, device=device,
+                                              lead=lead)
+        p["mlp"] = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt,
+                                device=device, lead=lead)
+        return p
     p["attn"] = attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
                                         cfg.n_kv_heads, cfg.dh, dt,
                                         device=device, lead=lead)
@@ -146,6 +187,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "w":
         return _rwkv_layer(cfg, p, x)[0], aux
+    if kind == "r":
+        return _rglru_layer(cfg, p, x)[0], aux
     h = _norm(cfg, p["norm1"], x)
     x = x + attn_mod.attention_block(
         p["attn"], h, n_heads=cfg.n_heads, rope_theta=cfg.rope_theta,
@@ -238,6 +281,12 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                                  dtype=torch.float32, device=device),
                 "tm_prev": torch.zeros(prev, dtype=cdt, device=device),
                 "cm_prev": torch.zeros(prev, dtype=cdt, device=device)}
+    if kind == "r":
+        dr = _d_rnn(cfg)
+        return {"h": torch.zeros((*lead, batch, dr), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((*lead, batch, 3, dr), dtype=cdt,
+                                    device=device)}
     shape = (*lead, batch, max_seq, cfg.n_kv_heads, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
@@ -262,14 +311,24 @@ def prefill_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     ``init_layer_state``): for ``'a'`` the first S slots of the KV cache
     take the prompt's keys and values; for ``'w'`` ``S`` takes the
     recurrence state after the prompt and ``tm_prev`` / ``cm_prev`` the
-    last normed inputs of the time-mix and channel-mix.  Returns (x,
-    state)."""
+    last normed inputs of the time-mix and channel-mix; for ``'r'`` ``h``
+    takes the recurrence state and ``conv`` the last 3 pre-conv rows
+    (zeros in front of a shorter prompt).  Returns (x, state)."""
     _check_kind(cfg, kind)
     if kind == "w":
         x, S, h, h2 = _rwkv_layer(cfg, p, x)
         state["S"].copy_(S)
         state["tm_prev"].copy_(h[:, -1:])
         state["cm_prev"].copy_(h2[:, -1:])
+        return x, state
+    if kind == "r":
+        x, h_last, z = _rglru_layer(cfg, p, x)    # z: the last 3 rows
+        state["h"].copy_(h_last)
+        conv = state["conv"]
+        n = min(conv.shape[1], z.shape[1])
+        if n < conv.shape[1]:
+            conv.zero_()
+        conv[:, conv.shape[1] - n:] = z[:, -n:].to(conv.dtype)
         return x, state
     s = x.shape[1]
     h = _norm(cfg, p["norm1"], x)
@@ -313,10 +372,24 @@ def decode_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  state, pos: torch.Tensor, window: int):
     """One-token decode through a single layer.  x: (B, 1, D); pos: a
     0-d int64 tensor on x's device (``models/lm.py::decode_step``).  The
-    layer's state (KV cache, or RWKV6 ``S``, ``tm_prev`` and ``cm_prev``)
-    is updated in place.  Returns (x, state)."""
+    layer's state (KV cache; RWKV6 ``S``, ``tm_prev`` and ``cm_prev``;
+    RG-LRU ``h`` and ``conv``) is updated in place.  Returns (x, state)."""
     _check_kind(cfg, kind)
     h = _norm(cfg, p["norm1"], x)
+    if kind == "r":
+        rp = p["rglru"]
+        gate = F.gelu(h @ rp["w_in_gate"].to(h.dtype), approximate="tanh")
+        z = h @ rp["w_in_rnn"].to(h.dtype)
+        zw = torch.cat([state["conv"].to(z.dtype), z], dim=1)
+        # the conv's row at the window's last: the prefill's products in
+        # the prefill's order
+        zc = ssm_mod._conv_rows(zw, rp["conv_w"].to(z.dtype), 1)
+        hseq, h_last = ssm_mod.rglru(rp, zc, state["h"])
+        x = x + (gate * hseq) @ rp["w_out"].to(h.dtype)
+        h2 = _norm(cfg, p["norm2"], x)
+        state["h"].copy_(h_last)
+        state["conv"].copy_(zw[:, 1:])
+        return x + glu_mlp(p["mlp"], h2, cfg.act), state
     if kind == "w":
         y, S = ssm_mod.rwkv6_mix_decode(p["tmix"], state["tm_prev"], h,
                                         state["S"], cfg.n_heads)

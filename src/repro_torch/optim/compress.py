@@ -51,7 +51,11 @@ def int8_init(grads_shape: PyTree) -> PyTree:
 
 
 def int8_quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp_min(g.abs().max(), 1e-12) / 127.0
+    m = torch.clamp_min(g.abs().max(), 1e-12)
+    # a divisor on the device: by a host scalar, CUDA multiplies by its
+    # float32 reciprocal, one ulp off the reference's division for about
+    # one max in twenty
+    scale = m / torch.full_like(m, 127.0)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 

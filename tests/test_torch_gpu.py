@@ -33,7 +33,9 @@ tier, bitwise); LM training (the RWKV6 backward kernel against
 equal; a reduced RWKV6 train step against the port on the CPU); the MoE
 block (reduced Mixtral's, card against the CPU on equal routing; two
 backward calls bitwise equal; captured Mixtral decode bitwise eager) and
-``int8_compress`` bitwise equal to the CPU's.
+``int8_compress`` bitwise equal to the CPU's; RecurrentGemma's flash
+case, the RG-LRU doubling scan, and the donated train step (`AdamW.update_`,
+the donating step and a checkpoint before it) bitwise the functional one.
 Marked ``gpu``; every test skips (inside a fixture) where there is no CUDA
 device.  On the card:
 
@@ -1578,3 +1580,153 @@ def test_int8_compress_on_the_card_is_the_cpus_bitwise(cuda):
     for a, b in zip(flat(tc.bf16_decompress(tc.bf16_compress(g))),
                     flat(tc.bf16_decompress(tc.bf16_compress(to(g))))):
         assert torch.equal(_bits(a), _bits(b.cpu()))
+
+
+@pytest.mark.parametrize("peak", [3.0031628608703613, 2.3511321544647217,
+                                  0.8049525618553162, 3.925164222717285])
+def test_int8_scale_is_a_division_on_the_card(cuda, peak):
+    """At these maxima ``max * float32(1/127)`` rounds one ulp away from
+    ``max / 127`` (the reference's scale), so a scale taken through the
+    reciprocal would change every quantized value's scale and the
+    residual; the card's scale, codes and residual are the CPU's bits."""
+    from repro_torch.optim import compress as tc
+    g = torch.tensor([peak, -0.5 * peak, 0.25, 0.0], dtype=torch.float32)
+    m = torch.tensor(peak, dtype=torch.float32)
+    assert m / 127.0 != m * (torch.tensor(1.0) / 127.0)
+    q, s = tc.int8_quantize(g)
+    qc, sc = tc.int8_quantize(g.to(cuda))
+    assert torch.equal(_bits(s), _bits(sc.cpu()))
+    assert torch.equal(q, qc.cpu())
+    (_, r), (_, rc) = (tc.int8_compress([g], [torch.zeros(4)]),
+                       tc.int8_compress([g.to(cuda)],
+                                        [torch.zeros(4, device=cuda)]))
+    assert torch.equal(_bits(r[0]), _bits(rc[0].cpu()))
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma (RG-LRU) and the donated train step
+# ---------------------------------------------------------------------------
+
+def test_flash_at_recurrentgemmas_shape_on_the_card(cuda):
+    """The bf16 kernel at RecurrentGemma-9B's prefill shape (8, 16, 1,
+    4096, 256), causal, window 2048, against ``attention_plain``: within
+    the derived limit at diffuse and sharp scores; the wrong answers
+    beyond it (10x but for scores rounded before the max, whose margin
+    the limit's reorder term at dh 256 keeps under 10x)."""
+    from repro_torch.kernels import flash_cases as fc
+    from repro_torch.kernels.ops import flash_attention_bhsd
+    rng = np.random.RandomState(31)
+    b, h, hkv, s, dh = fc.FLASH_RECURRENTGEMMA
+    mask = dict(causal=True, window=fc.FLASH_RECURRENTGEMMA_WINDOW)
+    margins = dict.fromkeys(fc.WRONG_ANSWERS, 0.0)
+    for sharp in FLASH_SHARPNESS:
+        q, k, v = flash_inputs(b, h, hkv, s, s, dh, rng, device=cuda,
+                               dtype=torch.bfloat16, sharpness=sharp)
+        out = flash_attention_bhsd(q, k, v, **mask)
+        plain = attention_plain(q, k, v, **mask)
+        assert bf16_ratio(out, q, k, v, plain=plain, **mask) <= 1
+        for name, wrong in fc.WRONG_ANSWERS.items():
+            margins[name] = max(margins[name], bf16_ratio(
+                wrong(q, k, v, **mask), q, k, v, plain=plain, **mask))
+        del q, k, v, out, plain
+    for name, m in margins.items():
+        assert m > (1.0 if name == "scores rounded before the row max"
+                    else fc.WRONG_MARGIN), (name, m)
+
+
+@pytest.mark.parametrize("s", [1, 3, 64, 4096])
+def test_rglru_doubling_scan_on_the_card(cuda, s):
+    """The doubling scan against a sequential fp64 recurrence, and BITWISE
+    from run to run (each pass reads only the previous pass's tensors)."""
+    gen = torch.Generator().manual_seed(s)
+    a = torch.rand(2, s, 256, generator=gen, dtype=torch.float64) * 0.5 \
+        + 0.5
+    b = torch.randn(2, s, 256, generator=gen, dtype=torch.float64)
+    ref, h = torch.empty_like(b), torch.zeros(2, 256, dtype=torch.float64)
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        ref[:, t] = h
+    ac, bc = a.float().to(cuda), b.float().to(cuda)
+    out = ssm.linear_scan(ac, bc)
+    assert float((out.double().cpu() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+    assert torch.equal(_bits(out), _bits(ssm.linear_scan(ac, bc)))
+
+
+def test_update_in_place_on_the_card_is_update_bitwise(cuda):
+    """``AdamW.update_`` on the card writes the params and moments in place
+    with ``update``'s bits (no FMA contraction: every product and sum is
+    its own operation), bf16 and fp32 params, the clip active."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.optim.adamw import AdamW
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda *sh, dt=torch.bfloat16: torch.randn(  # noqa: E731
+        sh, generator=gen, device=cuda).to(dt)
+    params = {"a": mk(1024, 257), "b": mk(33, dt=torch.float32),
+              "c": [mk(4, 8, 16)]}
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10,
+                grad_dtype="bfloat16")
+    ref_p, ref_s = params, opt.init(params)
+    don_p = pytree.tree_map(torch.clone, params)
+    don_s = opt.init(don_p)
+    for i in range(3):
+        grads = pytree.tree_map(lambda t: 30.0 * torch.randn(
+            t.shape, generator=gen, device=cuda).to(t.dtype), params)
+        ref_p, ref_s, ref_m = opt.update(grads, ref_s, ref_p)
+        don_p, don_s, m = opt.update_(grads, don_s, don_p)
+        for x, y in zip(pytree.tree_leaves((ref_p, ref_s.m, ref_s.v)),
+                        pytree.tree_leaves((don_p, don_s.m, don_s.v))):
+            assert torch.equal(_bits(x), _bits(y))
+        assert torch.equal(m["grad_norm"], ref_m["grad_norm"])
+
+
+def test_checkpoint_before_an_in_place_step_keeps_the_pre_step_bits(
+        cuda, tmp_path):
+    """``save`` queues the snapshot's copy on a copy stream and returns;
+    an in-place write queued right after it on the compute stream waits
+    for the copy, so the checkpoint holds the pre-step bits."""
+    from repro_torch.ckpt import CheckpointManager
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(1 << 24, generator=gen, device=cuda)
+    want = w.cpu()
+    mgr = CheckpointManager(tmp_path)
+    torch.cuda._sleep(10_000_000)   # the compute stream is busy...
+    mgr.save(1, {"w": w})
+    for _ in range(8):              # ...and the step writes in place
+        w.mul_(3.0).add_(1.0)
+    got, _ = mgr.restore_latest({"w": torch.zeros_like(w)})
+    assert torch.equal(got["w"].cpu(), want)
+    assert not torch.equal(w.cpu(), want)
+
+
+def test_donated_step_on_the_card_is_the_functional_step_bitwise(cuda):
+    """Reduced RecurrentGemma (r, r, a, r), fp32: three donated steps
+    with the sentinel on and the second poisoned, BITWISE the functional
+    step's params and moments, and int8's residual."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch.steps import init_compress_state, make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = reduced(get_arch("recurrentgemma-9b"), attn_impl="chunked")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks, "targets": toks}
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    for compress in (None, "int8"):
+        fun = make_train_step(cfg, opt, compress=compress, sentinel=True)
+        don = make_train_step(cfg, opt, compress=compress, sentinel=True,
+                              donate=True)
+        f = [params, opt.init(params)]
+        d = [pytree.tree_map(torch.clone, params)]
+        d.append(opt.init(d[0]))
+        if compress:
+            f.append(init_compress_state(compress, params))
+            d.append(init_compress_state(compress, params))
+        for i, poison in enumerate((False, True, False)):
+            *f, _ = fun(*f, batch, i, poison)
+            *d, _ = don(*d, batch, i, poison)
+            assert f[1].step == d[1].step == (1 if i < 2 else 2)
+            for x, y in zip(pytree.tree_leaves((f[0], f[1].m, f[1].v, f[2:])),
+                            pytree.tree_leaves((d[0], d[1].m, d[1].v, d[2:]))):
+                assert torch.equal(_bits(x), _bits(y))

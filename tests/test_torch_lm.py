@@ -55,12 +55,14 @@ ARCHS_SLICE = ["tinyllama-1.1b", "smollm-135m", "gemma3-4b"]
 # (arch, prompt length): the attention archs at S 24; RWKV6 on both sides
 # of its 256-token switch
 # the MoE archs at S 24: reduced Mixtral (4 experts, top 2, window 8) and
-# DBRX at its own 16 experts, top 4 (``_cfgs``)
+# DBRX at its own 16 experts, top 4 (``_cfgs``); the hybrid RecurrentGemma
+# at S 24 (r, r, a, r: an 'r' layer in the unrolled remainder)
 LM_CASES = [pytest.param(a, 24, id=a) for a in ARCHS_SLICE] + [
     pytest.param("rwkv6-7b", 32, id="rwkv6-7b-scan"),
     pytest.param("rwkv6-7b", 300, id="rwkv6-7b-chunked"),
     pytest.param("mixtral-8x7b", 24, id="mixtral-8x7b"),
-    pytest.param("dbrx-132b", 24, id="dbrx-132b")]
+    pytest.param("dbrx-132b", 24, id="dbrx-132b"),
+    pytest.param("recurrentgemma-9b", 24, id="recurrentgemma-9b")]
 
 
 @pytest.fixture(autouse=True)
@@ -300,7 +302,8 @@ def test_lm_forward_prefill_decode_match_jax(arch, s):
         assert (ops.rwkv6_plain_calls, ops.rwkv6_launches) == \
             (tlm.expected_rwkv6_calls(tcfg, s, 1), 0)
         assert ops.flash_plain_calls + ops.rwkv6_plain_calls == \
-            (0 if arch == "rwkv6-7b" and s <= 256 else tcfg.n_layers)
+            (0 if arch == "rwkv6-7b" and s <= 256
+             else sum(k in "aw" for k in tcfg.kinds))
         _close(jlast, tlast)
         jst_np = jax.tree_util.tree_map(np.asarray, jst)
         tst_np = convert.params_to_numpy(tst)
@@ -402,7 +405,7 @@ def test_prefill_impls_agree_and_steps_wrap_the_model():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("recurrentgemma-9b", "'r'"), ("whisper-medium", "encoder-decoder"),
+    ("whisper-medium", "encoder-decoder"),
     ("llava-next-mistral-7b", "vision_stub")])
 def test_unported_families_raise_naming_the_roadmap(arch, what):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
@@ -472,7 +475,8 @@ def _auto_mesh():
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "rwkv6-7b",
-                                  "mixtral-8x7b", "dbrx-132b"])
+                                  "mixtral-8x7b", "dbrx-132b",
+                                  "recurrentgemma-9b"])
 def test_lm_engine_tokens_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)

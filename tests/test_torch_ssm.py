@@ -341,8 +341,3 @@ def test_group_norm_uses_the_population_variance():
     err = float((unbiased - t).abs().max() / t.abs().max())
     assert err > 100 * SEQ_TOL, err
 
-
-def test_rglru_entry_points_raise_naming_the_roadmap():
-    for fn in (ssm.init_rglru_block, ssm.rglru, ssm.rglru_block):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            fn(None)

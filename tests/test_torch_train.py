@@ -391,15 +391,20 @@ def test_rwkv6_final_state_has_no_gradient():
 # ---------------------------------------------------------------------------
 
 # (arch, attention impl, sequence): the chunked custom VJP on TinyLlama,
-# the chunked RWKV6 form (S > 256) on RWKV6-7B
+# the chunked RWKV6 form (S > 256) on RWKV6-7B, the RG-LRU's doubling scan
+# on RecurrentGemma (r, r, a, r)
 LM_CASES = [pytest.param("tinyllama-1.1b", "chunked", 24, id="tinyllama"),
             pytest.param("rwkv6-7b", "naive", 300, id="rwkv6-chunked"),
             pytest.param("mixtral-8x7b", "chunked", 24, id="mixtral"),
-            pytest.param("dbrx-132b", "chunked", 24, id="dbrx")]
+            pytest.param("dbrx-132b", "chunked", 24, id="dbrx"),
+            pytest.param("recurrentgemma-9b", "chunked", 24,
+                         id="recurrentgemma")]
 
 
 def _lm(arch, impl, seed=0):
     kw = dict(n_layers=2, attn_impl=impl)
+    if arch == "recurrentgemma-9b":  # r, r, a, r: every kind of the stack
+        kw["n_layers"] = 4
     if arch == "dbrx-132b":  # reduced() cuts it to 4 experts, top 2
         kw.update(n_experts=16, top_k=4)
     jcfg = j_reduced(j_get_arch(arch), **kw)
@@ -451,7 +456,8 @@ def _jax_steps(jcfg, jp, batch, accum, n):
     pytest.param("tinyllama-1.1b", 2, 1, id="2-1"),
     pytest.param("mixtral-8x7b", 1, 3, id="mixtral-1-3"),
     pytest.param("mixtral-8x7b", 2, 1, id="mixtral-2-1"),
-    pytest.param("dbrx-132b", 1, 2, id="dbrx-1-2")])
+    pytest.param("dbrx-132b", 1, 2, id="dbrx-1-2"),
+    pytest.param("recurrentgemma-9b", 1, 2, id="recurrentgemma-1-2")])
 def test_train_step_matches_jax(f32, arch, accum, n):
     jcfg, tcfg, jp = _lm(arch, "chunked")
     batch = _batch(4, 24, seed=1)
